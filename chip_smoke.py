@@ -1,0 +1,616 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port starts and is right on a GPU.
+
+    python3 chip_smoke.py
+
+Needs one NVIDIA H100 (or another sm_90a card), ``nvcc`` and nothing from
+the network.  It imports ``repro_torch`` only, builds the port's CUDA
+kernels from the sources in this checkout, and runs five phases, each
+printing one JSON line; any failure raises and the process exits non-zero
+(nothing falls back to the CPU or to a kernel's plain version):
+
+  env      torch / CUDA versions, the card's name and power limit
+  build    builds the kernel library, seconds taken
+  kernels  each kernel against its plain PyTorch version on the card, at
+           smollm-135m's and qwen2.5-3b's shapes, fp and int8 pools
+  model    qwen2.5-3b at full width: a mixed and a decode ``forward``
+           through the kernels against the same through the plain versions
+  serve    the main path: ``build_cluster`` under ``TaiChiPolicy`` with one
+           P-heavy and one D-heavy ``TorchExecutor`` instance serving 32
+           seeded requests at the full width of qwen2.5-3b (random weights
+           from a seed), with flowing-decode migrations
+
+Then one line ``{"kernels": [...]}`` with, for every kernel of the port,
+its launches on the main path, its error against the plain version and its
+time beside the plain version's, the card's bound and one library call;
+the card's name and power limit as ``nvidia-smi`` prints them; and last
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "src"))
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.latency import SLO  # noqa: E402
+from repro_torch.core.policies import Sliders  # noqa: E402
+from repro_torch.engine.engine import PendingStep, TorchExecutor  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.chunked_prefill_attention import ops as pf_ops  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
+from repro_torch.kernels.paged_args import gather_kv  # noqa: E402
+from repro_torch.models import attention as attn_lib  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.sim.simulator import ServingConfig, build_cluster  # noqa: E402
+from repro_torch.sim.workload import LengthDist, WorkloadSpec  # noqa: E402
+
+DEV = "cuda"
+MODEL = "qwen2.5-3b"
+BLOCK = 16
+# NVIDIA H100 SXM data sheet: HBM3 rate, dense tensor-core bf16 rate, and
+# the float32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# float32: sums in another order than the plain version's matmul;
+# bfloat16: one rounding of the output (2^-8 relative) on values of a few
+# units, plus the same for the plain version's
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# full-width logits after 36 layers, relative to the largest logit.  In
+# float32 kernel and plain path differ by summation order only; in bf16
+# see phase_model
+MODEL_TOL_F32 = 1e-4
+MODEL_TOL_BF16_SLACK = 5e-3
+
+SHAPES = {   # name -> (Hq, Hkv, D, q dtype)
+    "smollm-135m": (9, 3, 64, torch.float32),
+    "qwen2.5-3b": (16, 2, 128, torch.bfloat16),
+}
+
+
+def emit(phase: str, **kw):
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def time_ms(fn, n: int = 10) -> float:
+    """Mean milliseconds of ``fn`` over ``n`` launches between two CUDA
+    events, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+# ---------------------------------------------------------------------------
+# kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def make_pool(seed, n_blk, hkv, d, dtype, quant):
+    """A [P + 1, Hkv, D] pool pair as the model holds it (dump row last),
+    filled from a seeded generator on the card."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    rows = n_blk * BLOCK + 1
+    k = torch.randn((rows, hkv, d), device=DEV, generator=g)
+    v = torch.randn((rows, hkv, d), device=DEV, generator=g)
+    if not quant:
+        return k.to(dtype), v.to(dtype), None, None
+    kq, ks = attn_lib.quantize_int8(k)
+    vq, vs = attn_lib.quantize_int8(v)
+    return kq, vq, ks, vs
+
+
+def make_tables(seed, n_blk, need_tokens, width):
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n_blk)
+    tables = np.full((len(need_tokens), width), -1, np.int32)
+    at = 0
+    for b, n in enumerate(need_tokens):
+        nb = -(-int(n) // BLOCK)
+        tables[b, :nb] = perm[at:at + nb]
+        at += nb
+    assert at <= n_blk
+    return torch.from_numpy(tables).to(DEV)
+
+
+def pool_item_bytes(k, quant):
+    """Bytes one (token, KV head) of K or V costs to read."""
+    return k.shape[2] * k.element_size() + (4 if quant else 0)
+
+
+def check_decode(shape_name, quant, lengths, n_blk=8192):
+    hq, hkv, d, dtype = SHAPES[shape_name]
+    B = len(lengths)
+    k, v, ks, vs = make_pool(1, n_blk, hkv, d, dtype, quant)
+    width = -(-max(lengths) // BLOCK)
+    tables = make_tables(2, n_blk, lengths, width)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(3)
+    q = torch.randn((B, hq, d), device=DEV, generator=g).to(dtype)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    kw = dict(block_size=BLOCK, k_scale=ks, v_scale=vs)
+    run = lambda: dec_ops.paged_decode_attention(q, k, v, tables, ln, **kw)
+    plain = lambda: dec_ops.paged_decode_attention_ref(q, k, v, tables, ln,
+                                                       **kw)
+    out = run()
+    torch.cuda.synchronize()
+    ref = plain()
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert torch.isfinite(out.float()).all(), "decode kernel: non-finite"
+    assert not out[ln == 0].any(), "decode kernel: empty row not zero"
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], f"decode {shape_name} quant={quant}: {err}"
+    # the library call: one SDPA over the gathered dense KV (timed alone)
+    kd = gather_kv(k, ks, tables, BLOCK).to(dtype).transpose(1, 2)
+    vd = gather_kv(v, vs, tables, BLOCK).to(dtype).transpose(1, 2)
+    mask = (torch.arange(kd.shape[2], device=DEV)[None, :]
+            < ln[:, None])[:, None, None, :]
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True)
+    keys = sum(lengths)
+    nbytes = (2 * keys * hkv * pool_item_bytes(k, quant)
+              + 2 * q.numel() * q.element_size()
+              + tables.numel() * 4 + ln.numel() * 4)
+    flops = 4.0 * hq * d * keys
+    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return {"kernel": "paged_decode_attention", "shape": shape_name,
+            "pool": "int8" if quant else str(dtype).split(".")[1],
+            "B": B, "max_ctx": max(lengths), "max_abs_err": err,
+            "tol": TOL[dtype], "ms": time_ms(run),
+            "plain_ms": time_ms(plain), "library_ms": time_ms(lib),
+            "bound_ms": 1e3 * max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+
+
+def check_prefill(shape_name, quant, starts, valids, tq, n_blk=8192):
+    hq, hkv, d, dtype = SHAPES[shape_name]
+    B = len(starts)
+    ends = [s + n for s, n in zip(starts, valids)]
+    k, v, ks, vs = make_pool(4, n_blk, hkv, d, dtype, quant)
+    width = -(-max(ends) // BLOCK)
+    tables = make_tables(5, n_blk, ends, width)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(6)
+    q = torch.randn((B, tq, hq, d), device=DEV, generator=g).to(dtype)
+    st = torch.tensor(starts, dtype=torch.int32, device=DEV)
+    vl = torch.tensor(valids, dtype=torch.int32, device=DEV)
+    kw = dict(block_size=BLOCK, k_scale=ks, v_scale=vs)
+    run = lambda: pf_ops.paged_chunked_prefill_attention(
+        q, k, v, tables, st, vl, **kw)
+    plain = lambda: pf_ops.paged_chunked_prefill_attention_ref(
+        q, k, v, tables, st, vl, **kw)
+    out = run()
+    torch.cuda.synchronize()
+    ref = plain()
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert torch.isfinite(out.float()).all(), "prefill kernel: non-finite"
+    err = 0.0
+    for b in range(B):
+        n = valids[b]     # tokens past valid are the caller's to drop
+        if n:
+            err = max(err, (out[b, :n].float() - ref[b, :n].float())
+                      .abs().max().item())
+        else:
+            assert not out[b].any(), "prefill kernel: padding row not zero"
+    assert err <= TOL[dtype], f"prefill {shape_name} quant={quant}: {err}"
+    del ref
+    kd = gather_kv(k, ks, tables, BLOCK).to(dtype).transpose(1, 2)
+    vd = gather_kv(v, vs, tables, BLOCK).to(dtype).transpose(1, 2)
+    kpos = torch.arange(kd.shape[2], device=DEV)[None, None, :]
+    qpos = (st[:, None] + torch.arange(tq, device=DEV)[None, :])[:, :, None]
+    mask = ((kpos <= qpos) & (kpos < (st + vl)[:, None, None]))[:, None]
+    qt = q.transpose(1, 2)
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kd, vd, attn_mask=mask, enable_gqa=True)
+    # what THIS batch needs: keys below each row's frontier once, and a
+    # query-key pair for every valid token and every key it may see
+    pairs = sum(n * s + n * (n + 1) // 2 for s, n in zip(starts, valids))
+    nbytes = (2 * sum(ends[b] for b in range(B) if valids[b]) * hkv
+              * pool_item_bytes(k, quant)
+              + 2 * q.numel() * q.element_size()
+              + tables.numel() * 4 + 8 * B)
+    flops = 4.0 * hq * d * pairs
+    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return {"kernel": "paged_chunked_prefill_attention", "shape": shape_name,
+            "pool": "int8" if quant else str(dtype).split(".")[1],
+            "B": B, "Tq": tq, "max_ctx": max(ends), "max_abs_err": err,
+            "tol": TOL[dtype], "ms": time_ms(run),
+            "plain_ms": time_ms(plain), "library_ms": time_ms(lib),
+            "bound_ms": 1e3 * max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+
+
+def phase_kernels():
+    # decode: 16 rows, contexts to 4096 on and off block boundaries, one
+    # empty row; prefill: a mixed batch padded to Tq = 1024 with padding,
+    # decode (valid 1), short and full chunks at offsets up to 3072
+    lengths = [0, 1, 17, 256, 1024, 4096, 4095, 2049,
+               512, 777, 1500, 3000, 64, 2048, 1333, 3583]
+    starts = [0, 4000, 100, 7, 3072, 512, 0, 2900]
+    valids = [0, 1, 17, 256, 1024, 1024, 1024, 1]
+    cases = []
+    for shape in SHAPES:
+        for quant in (False, True):
+            cases.append(check_decode(shape, quant, lengths))
+            cases.append(check_prefill(shape, quant, starts, valids, 1024))
+    emit("kernels", cases=cases, launches={
+        "paged_decode_attention": dec_ops.paged_decode_attention.launches,
+        "paged_chunked_prefill_attention":
+            pf_ops.paged_chunked_prefill_attention.launches})
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# the model at full width: kernels vs plain versions
+# ---------------------------------------------------------------------------
+
+class plain_attention:
+    """Route the model's paged read to the kernels' plain versions — for
+    this script's comparison only; the port itself never does."""
+
+    def __enter__(self):
+        self.saved = (attn_lib.paged_decode_attention,
+                      attn_lib.paged_chunked_prefill_attention)
+        attn_lib.paged_decode_attention = dec_ops.paged_decode_attention_ref
+        attn_lib.paged_chunked_prefill_attention = \
+            pf_ops.paged_chunked_prefill_attention_ref
+
+    def __exit__(self, *exc):
+        (attn_lib.paged_decode_attention,
+         attn_lib.paged_chunked_prefill_attention) = self.saved
+
+
+def _float_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _float_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_float_tree(v) for v in tree]
+    return tree.float()
+
+
+@torch.no_grad()
+def phase_model(cfg, params):
+    """One mixed forward (full chunk, decode row, short chunk, padding
+    row) and one decode forward over the same pool, three ways: bf16
+    through the kernels, bf16 through the plain versions, float32 through
+    both.  In float32 kernel and plain path must agree to MODEL_TOL_F32.
+    In bf16 the two paths round at other places and drift apart over 36
+    layers, so each is held against the float32 result: the kernel path
+    may be no further from it than the plain path is (times 1.5, plus
+    MODEL_TOL_BF16_SLACK)."""
+    n_blk, B, T = 256, 4, 256
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, size=(B, T)).astype(np.int32)).to(DEV)
+    start = torch.tensor([0, 700, 33, 0], dtype=torch.int32, device=DEV)
+    valid = torch.tensor([256, 1, 100, 0], dtype=torch.int32, device=DEV)
+    tables = make_tables(8, n_blk, [256, 701, 133, 0], 64)
+    pos = start[:, None] + torch.arange(T, dtype=torch.int32,
+                                        device=DEV)[None]
+    tok1 = tokens[:, :1].contiguous()
+    pos1 = (start + valid)[:, None]
+    # give row 1 (a decode row at position 700) a context to attend over
+    g = torch.Generator(device=DEV)
+    g.manual_seed(9)
+    seed_pool = tf.init_paged_cache(cfg, n_blk, BLOCK, device=DEV)
+    for name in ("k", "v"):
+        seed_pool[name][:, :-1] = torch.randn(
+            seed_pool[name][:, :-1].shape, device=DEV, generator=g
+        ).to(seed_pool[name].dtype)
+
+    def run(prm, dtype, plain):
+        pool = {n: t.to(dtype) for n, t in seed_pool.items()}
+        n0 = (dec_ops.paged_decode_attention.launches,
+              pf_ops.paged_chunked_prefill_attention.launches)
+        ctx = plain_attention() if plain else None
+        if ctx:
+            ctx.__enter__()
+        mixed, _, _ = tf.forward(prm, cfg, tokens, pos, pool,
+                                 valid_len=valid,
+                                 block_tables=(tables, BLOCK))
+        dec, _, _ = tf.forward(prm, cfg, tok1, pos1, pool,
+                               block_tables=(tables, BLOCK))
+        if ctx:
+            ctx.__exit__()
+        torch.cuda.synchronize()
+        want = 0 if plain else cfg.num_layers
+        assert dec_ops.paged_decode_attention.launches - n0[0] == want
+        assert pf_ops.paged_chunked_prefill_attention.launches - n0[1] \
+            == want
+        assert mixed.shape == (B, T, cfg.vocab_size) and mixed.dtype == dtype
+        assert torch.isfinite(mixed[:3].float()).all()
+        assert torch.isfinite(dec.float()).all()
+        return mixed.float(), dec.float()
+
+    def scaled_err(a, b):
+        worst = 0.0
+        for r in range(3):                  # row 3 is padding
+            n = int(valid[r])
+            for x, y in ((a[0][r, :n], b[0][r, :n]), (a[1][r], b[1][r])):
+                scale = max(y.abs().max().item(), 1.0)
+                worst = max(worst, (x - y).abs().max().item() / scale)
+        return worst
+
+    bf_kernel = run(params, torch.bfloat16, plain=False)
+    bf_plain = run(params, torch.bfloat16, plain=True)
+    params32 = _float_tree(params)
+    f32_kernel = run(params32, torch.float32, plain=False)
+    f32_plain = run(params32, torch.float32, plain=True)
+    del params32
+    err_f32 = scaled_err(f32_kernel, f32_plain)
+    err_kernel = scaled_err(bf_kernel, f32_plain)
+    err_plain = scaled_err(bf_plain, f32_plain)
+    assert err_f32 <= MODEL_TOL_F32, err_f32
+    assert err_kernel <= 1.5 * err_plain + MODEL_TOL_BF16_SLACK, \
+        (err_kernel, err_plain)
+    agree = (bf_kernel[0][0].argmax(-1) == f32_plain[0][0].argmax(-1))
+    emit("model", model=cfg.name, layers=cfg.num_layers,
+         logits_shape=list(bf_kernel[0].shape),
+         f32_kernel_vs_plain=err_f32, f32_tol=MODEL_TOL_F32,
+         bf16_kernel_vs_f32=err_kernel, bf16_plain_vs_f32=err_plain,
+         bf16_kernel_vs_bf16_plain=scaled_err(bf_kernel, bf_plain),
+         bf16_greedy_agreement_with_f32=agree.float().mean().item())
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the main path: a TaiChi cluster serving requests
+# ---------------------------------------------------------------------------
+
+class TimedExecutor(TorchExecutor):
+    """TorchExecutor that also logs, for every iteration, what ran and how
+    long dispatch and dispatch + readback took on the host clock."""
+
+    def __init__(self, *a, log, **kw):
+        super().__init__(*a, **kw)
+        self.log = log
+
+    def step_async(self, plan):
+        rows = [(take, req.prefill_pos + req.recompute_offset)
+                for req, take in plan.prefill_items]
+        ctxs = [int(self.positions[self.slots.slot(r.rid)])
+                for r in plan.decode_reqs]
+        t0 = time.perf_counter()
+        step = super().step_async(plan)
+        t1 = time.perf_counter()
+        if not isinstance(step, PendingStep):
+            return step
+        inner = step.resolve
+
+        def resolve():
+            first = not step.resolved
+            eos = inner()
+            if first:
+                self.log.append({"prefill": rows, "decode": ctxs,
+                                 "dispatch_s": t1 - t0,
+                                 "total_s": time.perf_counter() - t0})
+            return eos
+
+        step.resolve = resolve
+        return step
+
+
+def derive_derates(log, cost):
+    """The estimator's three derates from the measured iterations.  The
+    estimator adds ``iteration_overhead_s`` to the larger of FLOPs /
+    (peak * ``prefill_mfu``) and bytes / (bandwidth * ``decode_membw_eff``).
+
+    * the overhead is the mean time the host needs to enqueue a
+      decode-only iteration (``dispatch_s``): with an eager per-layer loop
+      no iteration is shorter than that, whatever its batch;
+    * the decode bandwidth share is model bytes over what the mean
+      decode-only iteration leaves after the overhead, and the prefill MFU
+      model FLOPs over what the mean prefill-only iteration leaves.  The
+      device works while the host still enqueues, so the remainder
+      understates its time: it is floored at a quarter of the iteration.
+    FLOPs and bytes are the estimator's own (``CostModel``)."""
+    inst = cost.inst
+    pre = [e for e in log if e["prefill"] and not e["decode"]]
+    dec = [e for e in log if e["decode"] and not e["prefill"]]
+    mixed = [e for e in log if e["decode"] and e["prefill"]]
+
+    def flops(e):
+        n = sum(t for t, _ in e["prefill"]) + len(e["decode"])
+        f = cost._matmul_flops(n)
+        f += sum(cost._attn_flops(t, c) for t, c in e["prefill"])
+        return f + sum(cost._attn_flops(1, c) for c in e["decode"])
+
+    def nbytes(e):
+        b = float(cost.weight_bytes)
+        b += sum(cost._kv_read_bytes(c) for c in e["decode"])
+        return b + sum(cost._kv_read_bytes(c) + t * cost.kv_bytes_per_token()
+                       for t, c in e["prefill"])
+
+    def mean(xs):
+        return float(np.mean(xs))
+
+    out = {"prefill_only_iterations": len(pre),
+           "decode_only_iterations": len(dec),
+           "mixed_iterations": len(mixed)}
+    if mixed:
+        out["mixed_mean_s"] = mean([e["total_s"] for e in mixed])
+        out["mixed_mean_prefill_tokens"] = mean(
+            [sum(t for t, _ in e["prefill"]) for e in mixed])
+        out["mixed_mean_decode_rows"] = mean(
+            [len(e["decode"]) for e in mixed])
+    if not (pre and dec):
+        return out
+    t_dec = mean([e["total_s"] for e in dec])
+    t_pre = mean([e["total_s"] for e in pre])
+    overhead = mean([e["dispatch_s"] for e in dec])
+    out.update(
+        decode_only_mean_s=t_dec,
+        decode_only_mean_batch=mean([len(e["decode"]) for e in dec]),
+        decode_only_mean_context=mean(
+            [c for e in dec for c in e["decode"]]),
+        prefill_only_mean_s=t_pre,
+        prefill_only_mean_dispatch_s=mean([e["dispatch_s"] for e in pre]),
+        prefill_only_mean_tokens=mean(
+            [sum(t for t, _ in e["prefill"]) for e in pre]),
+        iteration_overhead_s=overhead,
+        decode_membw_eff=mean([nbytes(e) for e in dec])
+        / max(t_dec - overhead, t_dec / 4) / inst.hbm_bw,
+        prefill_mfu=mean([flops(e) for e in pre])
+        / max(t_pre - overhead, t_pre / 4) / inst.flops,
+        in_use={"prefill_mfu": inst.hw.prefill_mfu,
+                "decode_membw_eff": inst.hw.decode_membw_eff,
+                "iteration_overhead_s": inst.hw.iteration_overhead_s})
+    return out
+
+
+def phase_serve(cfg, params):
+    log = []
+    sc = ServingConfig(model=MODEL, tp=1, policy="taichi",
+                       sliders=Sliders(n_p=1, n_d=1, s_p=1024, s_d=256),
+                       hbm_blocks=8192, block_size=BLOCK)
+    factory = lambda: TimedExecutor(cfg, params, n_slots=32, max_seq=4096,
+                                    hbm_blocks=8192, device=DEV, log=log)
+    slo = SLO(ttft=5.0, tpot=0.2)
+    cluster = build_cluster(sc, slo, seed=0, executor_factory=factory)
+
+    def raise_exec_error(inst, now, exc):
+        # the cluster would quarantine the instance and carry on: here a
+        # failed executor step fails the run
+        raise exc
+
+    cluster._on_exec_error = raise_exec_error
+    wl = WorkloadSpec("smoke",
+                      LengthDist(mu=6.5, sigma=0.8, lo=128, hi=2048),
+                      LengthDist(mu=4.0, sigma=0.6, lo=16, hi=128),
+                      tokenized=True, vocab_size=cfg.vocab_size)
+    reqs = wl.sample_requests(32, qps=8.0, seed=0)
+    executors = [inst.executor for inst in cluster.policy.instances]
+    pool_bytes = sum(ex.cache_bytes() for ex in executors)
+
+    # counts to 0 just before the main path, read just after
+    dec_ops.paged_decode_attention.launches = 0
+    pf_ops.paged_chunked_prefill_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cluster.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {
+        "paged_decode_attention": dec_ops.paged_decode_attention.launches,
+        "paged_chunked_prefill_attention":
+            pf_ops.paged_chunked_prefill_attention.launches}
+
+    for r in reqs:
+        assert r.state.value == "finished", (r.rid, r.state)
+        assert len(r.output_tokens) == r.target_output_len, \
+            (r.rid, len(r.output_tokens), r.target_output_len)
+        assert all(0 <= t < cfg.vocab_size for t in r.output_tokens)
+    assert cluster.exec_errors == 0, cluster.last_exec_error
+    assert cluster.transfer_count > 0, "no flowing-decode migration ran"
+    assert all(n > 0 for n in launches.values()), launches
+    iterations = sum(inst.iterations for inst in cluster.policy.instances)
+    readbacks = sum(ex.host_readbacks for ex in executors)
+    assert 0 < readbacks <= iterations, (readbacks, iterations)
+    assert len(log) == readbacks
+    assert launches["paged_decode_attention"] \
+        + launches["paged_chunked_prefill_attention"] \
+        == readbacks * cfg.num_layers
+    for ex in executors:
+        ex.kv.check_invariants()
+    out_tokens = sum(len(r.output_tokens) for r in reqs)
+    in_tokens = sum(r.prompt_len for r in reqs)
+    derates = derive_derates(log, cluster.cost)
+    emit("serve", model=cfg.name, policy="taichi", requests=len(reqs),
+         prompt_tokens=in_tokens, output_tokens=out_tokens,
+         wall_s=wall, output_tokens_per_s=out_tokens / wall,
+         total_tokens_per_s=(in_tokens + out_tokens) / wall,
+         iterations=iterations, host_readbacks=readbacks,
+         host_syncs=sum(ex.host_syncs for ex in executors),
+         transfers=cluster.transfer_count, launches=launches,
+         kv_pool_bytes=pool_bytes,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         measured=derates)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
+              "is false", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    emit("env", python=sys.version.split()[0], torch=torch.__version__,
+         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+         nvidia_smi=smi, allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+    t0 = time.perf_counter()
+    build.load_library()
+    emit("build", seconds=time.perf_counter() - t0,
+         nvcc_seconds=build.last_build_seconds,
+         sources=[p.name for p in build.sources()])
+
+    cases = phase_kernels()
+
+    cfg = get_config(MODEL)
+    t0 = time.perf_counter()
+    params = tf.init_params(0, cfg, device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in (params["embed"], params["lm_head"]))
+    n_params += sum(t.numel() for blk in params["layers"]
+                    for sub in blk.values()
+                    for t in (sub.values() if isinstance(sub, dict)
+                              else [sub]))
+    emit("params", model=cfg.name, parameters=n_params,
+         seconds=time.perf_counter() - t0)
+    phase_model(cfg, params)
+    launches = phase_serve(cfg, params)
+
+    # one entry a kernel, at the main path's shape (qwen2.5-3b, bf16 pool)
+    main_cases = {c["kernel"]: c for c in cases
+                  if c["shape"] == MODEL and c["pool"] == "bfloat16"}
+    meta = {
+        "paged_decode_attention": (
+            "src/repro_torch/kernels/csrc/paged_decode.cu",
+            "src/repro/kernels/decode_attention/paged_decode.py:122"),
+        "paged_chunked_prefill_attention": (
+            "src/repro_torch/kernels/csrc/paged_prefill.cu",
+            "src/repro/kernels/chunked_prefill_attention/"
+            "paged_prefill.py:135"),
+    }
+    kernels = []
+    for name, (source, replaces) in meta.items():
+        c = main_cases[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+    emit("total", seconds=time.perf_counter() - t_start)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

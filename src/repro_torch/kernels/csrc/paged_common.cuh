@@ -1,0 +1,97 @@
+// Shared pieces of the two paged-attention kernels: element loads that
+// widen to float, the page-table dereference, and the tile loader that
+// brings KV rows of the flat [P, Hkv, D] pool into shared memory.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace paged {
+
+// Finite stand-in for -inf: exp(m_prev - m_new) on a fully masked first
+// tile is then exp(0) = 1 times a zero sum, never NaN.
+constexpr float kNegInf = -1e30f;
+constexpr float kMinDenominator = 1e-30f;
+
+// dtype codes of the C interface
+constexpr int kF32 = 0;
+constexpr int kBF16 = 1;
+constexpr int kI8 = 2;
+
+// ---- 4 consecutive elements -> 4 floats (16 / 8 / 4 byte loads) --------
+__device__ __forceinline__ void load4(const float* p, float out[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float out[4]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  // a bf16 is the high half of an f32
+  out[0] = __uint_as_float(raw.x << 16);
+  out[1] = __uint_as_float(raw.x & 0xffff0000u);
+  out[2] = __uint_as_float(raw.y << 16);
+  out[3] = __uint_as_float(raw.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ void load4(const int8_t* p, float out[4]) {
+  const char4 v = *reinterpret_cast<const char4*>(p);
+  out[0] = static_cast<float>(v.x); out[1] = static_cast<float>(v.y);
+  out[2] = static_cast<float>(v.z); out[3] = static_cast<float>(v.w);
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// Geometry of the pool and the page tables, the same for both kernels.
+struct PoolView {
+  const int* tables;     // [B, NB] logical block -> physical block (-1 none)
+  int NB;                // table width
+  int block_size;        // tokens per page
+  int n_blk;             // physical pages in the pool
+  long stride_tok;       // elements between tokens of the KV pool
+  long stride_head;      // elements between KV heads of one token
+  long sc_stride_tok;    // elements between tokens of the scale pool
+};
+
+// Physical token row of logical position `pos` of batch row `b`.  Entries
+// below 0 (unallocated) and past the pool are clamped into range: every
+// such key is masked by the caller before it can contribute.
+__device__ __forceinline__ long physical_token(const PoolView& pv, int b,
+                                               int pos) {
+  int page = pos / pv.block_size;
+  page = page < pv.NB ? page : pv.NB - 1;
+  int blk = pv.tables[static_cast<long>(b) * pv.NB + page];
+  blk = blk < 0 ? 0 : (blk >= pv.n_blk ? pv.n_blk - 1 : blk);
+  return static_cast<long>(blk) * pv.block_size + pos % pv.block_size;
+}
+
+// Load keys [kv0, kv0 + TK) of (row b, KV head h) into dst[TK][DP] as
+// floats, dequantised where the pool is int8.  Keys at or past kv_hi are
+// zero-filled so that a masked probability of 0 never meets a NaN.
+template <typename KT, int D, int DP, int TK, int NT>
+__device__ __forceinline__ void load_kv_tile(
+    float* dst, const KT* pool, const float* scale, const PoolView& pv,
+    int b, int h, int kv0, int kv_hi, int tid) {
+  constexpr int kChunks = D / 4;               // 4-element chunks per key
+  for (int c = tid; c < TK * kChunks; c += NT) {
+    const int j = c / kChunks;
+    const int d = (c % kChunks) * 4;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    const int pos = kv0 + j;
+    if (pos < kv_hi) {
+      const long tok = physical_token(pv, b, pos);
+      load4(pool + tok * pv.stride_tok + h * pv.stride_head + d, v);
+      if (scale != nullptr) {
+        const float s = scale[tok * pv.sc_stride_tok + h];
+        v[0] *= s; v[1] *= s; v[2] *= s; v[3] *= s;
+      }
+    }
+    *reinterpret_cast<float4*>(dst + j * DP + d) =
+        make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+}  // namespace paged

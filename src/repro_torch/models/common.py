@@ -1,0 +1,80 @@
+"""Shared PyTorch building blocks: init helper, RMSNorm, RoPE, SwiGLU."""
+from __future__ import annotations
+
+import torch
+
+
+# ---------------------------------------------------------------------------
+# Parameter init
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None):
+    """Truncated-normal fan-in init (LLaMA-style), drawn from ``gen`` on
+    the generator's device."""
+    fan_in = shape[0] if len(shape) > 1 else shape[-1]
+    if scale is None:
+        scale = fan_in ** -0.5
+    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-3.0, b=3.0,
+                                generator=gen)
+    return (w * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Normalisation
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, weight, eps: float = 1e-6):
+    """RMSNorm in float32 with a ``1 + weight`` gain (zero-init weight)."""
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + weight.float())).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def rope_tables(positions, head_dim: int, theta: float):
+    """(cos, sin), each [..., T, 1, D/2] float32, for absolute
+    ``positions`` [..., T] — computed once a forward pass and shared by
+    every layer."""
+    freqs = rope_freqs(head_dim, theta, positions.device)
+    angles = positions[..., None].float() * freqs
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def apply_rope(x, positions, theta: float, tables=None):
+    """x: [..., T, H, D]; positions: broadcastable to [..., T] (absolute).
+    Half-split layout: the pair of element i is element i + D/2."""
+    cos, sin = tables if tables is not None else rope_tables(
+        positions, x.shape[-1], theta)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype):
+    return {
+        "w_gate": dense_init(gen, (d_model, d_ff), dtype),
+        "w_up": dense_init(gen, (d_model, d_ff), dtype),
+        "w_down": dense_init(gen, (d_ff, d_model), dtype),
+    }
+
+
+def mlp(params, x):
+    g = x @ params["w_gate"]
+    u = x @ params["w_up"]
+    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    return h @ params["w_down"]

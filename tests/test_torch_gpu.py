@@ -1,0 +1,178 @@
+"""Tests of the port that need the card (marker ``gpu``): they build the
+CUDA kernels with nvcc and run on a CUDA device, and skip where there is
+none.  They import nothing of the reference, so they run on a machine
+without jax:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import reduced_config
+from repro_torch.core.estimator import CostModel
+from repro_torch.core.hw import InstanceSpec
+from repro_torch.core.instance import D_HEAVY, Instance
+from repro_torch.engine.engine import TorchExecutor
+from repro_torch.engine.request import Request
+from repro_torch.kernels.chunked_prefill_attention.ops import (
+    paged_chunked_prefill_attention, paged_chunked_prefill_attention_ref)
+from repro_torch.kernels.decode_attention.ops import (
+    paged_decode_attention, paged_decode_attention_ref)
+from repro_torch.models import attention as attn
+from repro_torch.models import transformer as tf
+
+pytestmark = pytest.mark.gpu
+BS, NBLK = 16, 64
+# float32: another summation order than the plain version's matmul;
+# bfloat16: one rounding of an output of a few units on each side
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc to build the kernels)")
+    return torch.device("cuda")
+
+
+def _pools(dev, hkv, d, dtype, quant, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    k = torch.randn((NBLK * BS + 1, hkv, d), device=dev, generator=g)
+    v = torch.randn((NBLK * BS + 1, hkv, d), device=dev, generator=g)
+    if quant:
+        kq, ks = attn.quantize_int8(k)
+        vq, vs = attn.quantize_int8(v)
+        return kq, vq, dict(k_scale=ks, v_scale=vs)
+    return k.to(dtype), v.to(dtype), {}
+
+
+def _tables(dev, need, width, seed=1):
+    rng = np.random.default_rng(seed)
+    perm = list(rng.permutation(NBLK))
+    t = np.full((len(need), width), -1, np.int32)
+    for b, n in enumerate(need):
+        nb = -(-int(n) // BS)
+        t[b, :nb] = [perm.pop() for _ in range(nb)]
+    return torch.from_numpy(t).to(dev)
+
+
+SHAPES = [(8, 2, 64), (9, 3, 64), (16, 2, 128), (5, 1, 128), (4, 4, 64)]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hq,hkv,d", SHAPES)
+def test_decode_kernel_matches_plain_version(cuda, hq, hkv, d, dtype, quant):
+    lengths = [0, 1, 16, 17, 37, 160, 255, 64]
+    k, v, scales = _pools(cuda, hkv, d, dtype, quant)
+    tables = _tables(cuda, lengths, 16)
+    q = torch.randn((len(lengths), hq, d), device=cuda).to(dtype)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = paged_decode_attention.launches
+    out = paged_decode_attention(q, k, v, tables, ln, block_size=BS,
+                                 **scales)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    ref = paged_decode_attention_ref(q, k, v, tables, ln, block_size=BS,
+                                     **scales)
+    assert torch.isfinite(out.float()).all() and not out[0].any()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hq,hkv,d", SHAPES)
+def test_prefill_kernel_matches_plain_version(cuda, hq, hkv, d, dtype,
+                                              quant):
+    starts = [0, 40, 5, 0, 100, 15]
+    valids = [64, 1, 17, 0, 33, 50]
+    tq = 64
+    k, v, scales = _pools(cuda, hkv, d, dtype, quant)
+    tables = _tables(cuda, [s + n for s, n in zip(starts, valids)], 16)
+    q = torch.randn((len(starts), tq, hq, d), device=cuda).to(dtype)
+    st = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    vl = torch.tensor(valids, dtype=torch.int32, device=cuda)
+    before = paged_chunked_prefill_attention.launches
+    out = paged_chunked_prefill_attention(q, k, v, tables, st, vl,
+                                          block_size=BS, **scales)
+    torch.cuda.synchronize()
+    assert paged_chunked_prefill_attention.launches == before + 1
+    ref = paged_chunked_prefill_attention_ref(q, k, v, tables, st, vl,
+                                              block_size=BS, **scales)
+    assert torch.isfinite(out.float()).all() and not out[3].any()
+    for b, n in enumerate(valids):
+        if n:
+            err = (out[b, :n].float() - ref[b, :n].float()).abs().max()
+            assert err.item() <= TOL[dtype], (b, err.item())
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    k, v, _ = _pools(cuda, 2, 64, torch.float32, False)
+    tables = _tables(cuda, [20], 4)
+    ln = torch.tensor([20], dtype=torch.int32, device=cuda)
+    q = torch.randn((1, 8, 64), device=cuda)
+    with pytest.raises(TypeError):
+        paged_decode_attention(q.half(), k, v, tables, ln, block_size=BS)
+    with pytest.raises(ValueError):     # head_dim 32
+        paged_decode_attention(q[..., :32], k[..., :32], v[..., :32],
+                               tables, ln, block_size=BS)
+    with pytest.raises(ValueError):     # scales without an int8 pool
+        paged_decode_attention(q, k, v, tables, ln, block_size=BS,
+                               k_scale=k[..., 0], v_scale=v[..., 0])
+    with pytest.raises(ValueError):     # a table on another device
+        paged_decode_attention(q, k, v, tables.cpu(), ln, block_size=BS)
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["fp", "int8"])
+def test_executor_on_the_card_matches_itself_on_the_cpu(cuda, kv_quant):
+    """Reduced float32 config, greedy: the executor through the CUDA
+    kernels generates the tokens it generates on the CPU through the
+    plain versions (uneven prompts over several T buckets, decode mixing
+    into prefill iterations)."""
+    cfg = reduced_config("qwen2.5-3b")
+    cpu_params = tf.init_params(5, cfg, device="cpu")
+
+    def to_dev(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to_dev(x, dev) for k, x in tree.items()}
+        if isinstance(tree, list):
+            return [to_dev(x, dev) for x in tree]
+        return tree.to(dev)
+
+    rng = np.random.default_rng(5)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, size=n)))
+               for n in (9, 14, 33, 47, 120)]
+
+    def gen(dev):
+        ex = TorchExecutor(cfg, to_dev(cpu_params, dev), n_slots=6,
+                           max_seq=256, t_buckets=(8, 16, 32, 64),
+                           kv_quant=kv_quant, device=dev)
+        inst = Instance(0, D_HEAVY, 48, CostModel(cfg, InstanceSpec(tp=1)),
+                        ex, hbm_blocks=512)
+        reqs = [Request(prompt_len=len(p), max_new_tokens=8,
+                        hidden_output_len=8, prompt_tokens=list(p))
+                for p in prompts]
+        for r in reqs:
+            inst.enqueue_prefill(r)
+        now = 0.0
+        for _ in range(300):
+            if all(r.done() for r in reqs):
+                break
+            dur, done, _ = inst.run_iteration(now)
+            now += dur
+            for r in done:
+                inst.admit_decode(r)
+        assert all(r.done() for r in reqs)
+        ex.kv.check_invariants()
+        return [r.output_tokens for r in reqs]
+
+    d0 = paged_decode_attention.launches
+    p0 = paged_chunked_prefill_attention.launches
+    on_card = gen(cuda)
+    assert paged_decode_attention.launches > d0
+    assert paged_chunked_prefill_attention.launches > p0
+    assert on_card == gen(torch.device("cpu"))
