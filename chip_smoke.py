@@ -5,29 +5,47 @@
 
 Needs one NVIDIA H100 (or another sm_90a card), ``nvcc`` and nothing from
 the network.  It imports ``repro_torch`` only, builds the port's CUDA
-kernels from the sources in this checkout, and runs five phases, each
+kernels from the sources in this checkout, and runs its phases, each
 printing one JSON line; any failure raises and the process exits non-zero
 (nothing falls back to the CPU or to a kernel's plain version):
 
-  env      torch / CUDA versions, the card's name and power limit
-  build    builds the kernel library, seconds taken
-  kernels  each kernel against its plain PyTorch version on the card, at
-           smollm-135m's and qwen2.5-3b's shapes, fp and int8 pools
-  model    qwen2.5-3b at full width: a mixed and a decode ``forward``
-           through the kernels against the same through the plain versions
-  serve    the main path: ``build_cluster`` under ``TaiChiPolicy`` with one
-           P-heavy and one D-heavy ``TorchExecutor`` instance serving 32
-           seeded requests at the full width of qwen2.5-3b (random weights
-           from a seed), with flowing-decode migrations
+  env            torch / CUDA versions, the card's name and power limit
+  build          builds the kernel library, seconds taken
+  kernels        the two paged kernels against their plain PyTorch
+                 versions on the card, at smollm-135m's and qwen2.5-3b's
+                 shapes, fp and int8 pools
+  params, model  qwen2.5-3b at full width: a mixed and a decode
+                 ``forward`` through the kernels against the same through
+                 the plain versions
+  serve          the paged main path: ``build_cluster`` under
+                 ``TaiChiPolicy`` with one P-heavy and one D-heavy
+                 ``TorchExecutor`` instance serving 32 seeded requests at
+                 the full width of qwen2.5-3b (random weights from a
+                 seed), with flowing-decode migrations
+  kernels_dense  the dense decode, dense chunked-prefill and SSD-scan
+                 kernels against their plain versions, at smollm-135m's and
+                 zamba2-7b's attention shapes (zamba2-7b's in bf16 and
+                 float32) and zamba2-7b's and mamba2-1.3b's scan shapes
+  model_zamba2   zamba2-7b at full width, cut to 12 of its 81 layers:
+                 slot prefills and a masked full-batch decode over a dense
+                 cache, through the kernels against the plain versions
+  params_zamba2, serve_zamba2
+                 the dense main path: the same cluster with two 8-slot
+                 dense ``TorchExecutor`` instances serving 16 seeded
+                 requests at the full width and depth of zamba2-7b; each
+                 first token held against a replay of its prefill chunks
 
 Then one line ``{"kernels": [...]}`` with, for every kernel of the port,
-its launches on the main path, its error against the plain version and its
-time beside the plain version's, the card's bound and one library call;
-the card's name and power limit as ``nvidia-smi`` prints them; and last
-``{"ok": true, "device": {...}}``.
+its launches on the main path that runs it, its error against the plain
+version and its time beside the plain version's, the card's bound and one
+library call; the card's name and power limit as ``nvidia-smi`` prints
+them; and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -48,6 +66,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.chunked_prefill_attention import ops as pf_ops  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.paged_args import gather_kv  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.sim.simulator import ServingConfig, build_cluster  # noqa: E402
@@ -75,6 +94,46 @@ SHAPES = {   # name -> (Hq, Hkv, D, q dtype)
     "qwen2.5-3b": (16, 2, 128, torch.bfloat16),
 }
 
+ZAMBA = "zamba2-7b"
+DENSE_S = 2048          # max_seq of the dense cache (serve_zamba2's too)
+DENSE_SHAPES = [   # (name, Hq, Hkv, D, q and cache dtype); zamba2-7b's
+    # shape (the main path's, in bf16) also in float32, where the
+    # tolerance is a small part of a typical output
+    ("smollm-135m", 9, 3, 64, torch.float32),
+    (ZAMBA, 32, 32, 112, torch.float32),
+    (ZAMBA, 32, 32, 112, torch.bfloat16),
+]
+# the scan: float32 sums over a chunk in another order and exp of another
+# library (the reference's kernel tests hold it to the same bound)
+SSD_TOL = 2e-3
+SSD_SHAPES = [   # (model, heads, head dim P, state N, chunk L, tokens t)
+    (ZAMBA, 112, 64, 64, 256, 1024),
+    (ZAMBA, 112, 64, 64, 215, 1075),     # t: five chunks of 215
+    ("mamba2-1.3b", 64, 64, 128, 256, 1024),
+]
+
+# every kernel wrapper of the port (the launch counters live on these
+# function objects, whatever a comparison swaps into the model's modules)
+KERNELS = {
+    "paged_decode_attention": dec_ops.paged_decode_attention,
+    "paged_chunked_prefill_attention":
+        pf_ops.paged_chunked_prefill_attention,
+    "decode_attention": dec_ops.decode_attention,
+    "chunked_prefill_attention": pf_ops.chunked_prefill_attention,
+    "ssd_scan": ssd_ops.ssd_scan,
+}
+PAGED_KERNELS = ("paged_decode_attention", "paged_chunked_prefill_attention")
+DENSE_KERNELS = ("decode_attention", "chunked_prefill_attention", "ssd_scan")
+
+
+def launch_counts(names):
+    return {n: KERNELS[n].launches for n in names}
+
+
+def reset_counts(names):
+    for n in names:
+        KERNELS[n].launches = 0
+
 
 def emit(phase: str, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
@@ -93,6 +152,14 @@ def time_ms(fn, n: int = 10) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / n
+
+
+def bound(nbytes, flops, dtype):
+    """The least time the card could take: the larger of ``nbytes`` over
+    the HBM rate and ``flops`` over the peak rate of ``dtype``."""
+    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return {"bound_ms": 1e3 * max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
 
 
 # ---------------------------------------------------------------------------
@@ -165,15 +232,12 @@ def check_decode(shape_name, quant, lengths, n_blk=8192):
     nbytes = (2 * keys * hkv * pool_item_bytes(k, quant)
               + 2 * q.numel() * q.element_size()
               + tables.numel() * 4 + ln.numel() * 4)
-    flops = 4.0 * hq * d * keys
-    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return {"kernel": "paged_decode_attention", "shape": shape_name,
             "pool": "int8" if quant else str(dtype).split(".")[1],
             "B": B, "max_ctx": max(lengths), "max_abs_err": err,
             "tol": TOL[dtype], "ms": time_ms(run),
             "plain_ms": time_ms(plain), "library_ms": time_ms(lib),
-            "bound_ms": 1e3 * max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+            **bound(nbytes, 4.0 * hq * d * keys, dtype)}
 
 
 def check_prefill(shape_name, quant, starts, valids, tq, n_blk=8192):
@@ -223,15 +287,12 @@ def check_prefill(shape_name, quant, starts, valids, tq, n_blk=8192):
               * pool_item_bytes(k, quant)
               + 2 * q.numel() * q.element_size()
               + tables.numel() * 4 + 8 * B)
-    flops = 4.0 * hq * d * pairs
-    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return {"kernel": "paged_chunked_prefill_attention", "shape": shape_name,
             "pool": "int8" if quant else str(dtype).split(".")[1],
             "B": B, "Tq": tq, "max_ctx": max(ends), "max_abs_err": err,
             "tol": TOL[dtype], "ms": time_ms(run),
             "plain_ms": time_ms(plain), "library_ms": time_ms(lib),
-            "bound_ms": 1e3 * max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+            **bound(nbytes, 4.0 * hq * d * pairs, dtype)}
 
 
 def phase_kernels():
@@ -258,20 +319,31 @@ def phase_kernels():
 # the model at full width: kernels vs plain versions
 # ---------------------------------------------------------------------------
 
-class plain_attention:
-    """Route the model's paged read to the kernels' plain versions — for
-    this script's comparison only; the port itself never does."""
+class plain_kernels:
+    """Route the model's cache reads and scans to the kernels' plain
+    versions — for this script's comparison only; the port itself never
+    does."""
+
+    SWAPS = [
+        (attn_lib, "paged_decode_attention",
+         dec_ops.paged_decode_attention_ref),
+        (attn_lib, "paged_chunked_prefill_attention",
+         pf_ops.paged_chunked_prefill_attention_ref),
+        (attn_lib, "decode_attention", dec_ops.decode_attention_ref),
+        (attn_lib, "chunked_prefill_attention",
+         pf_ops.chunked_prefill_attention_ref),
+        (ssd_ops, "ssd_scan", ssd_ops.ssd_scan_ref),
+    ]
 
     def __enter__(self):
-        self.saved = (attn_lib.paged_decode_attention,
-                      attn_lib.paged_chunked_prefill_attention)
-        attn_lib.paged_decode_attention = dec_ops.paged_decode_attention_ref
-        attn_lib.paged_chunked_prefill_attention = \
-            pf_ops.paged_chunked_prefill_attention_ref
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod, name, _ in self.SWAPS]
+        for mod, name, fn in self.SWAPS:
+            setattr(mod, name, fn)
 
     def __exit__(self, *exc):
-        (attn_lib.paged_decode_attention,
-         attn_lib.paged_chunked_prefill_attention) = self.saved
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
 
 
 def _float_tree(tree):
@@ -314,23 +386,17 @@ def phase_model(cfg, params):
 
     def run(prm, dtype, plain):
         pool = {n: t.to(dtype) for n, t in seed_pool.items()}
-        n0 = (dec_ops.paged_decode_attention.launches,
-              pf_ops.paged_chunked_prefill_attention.launches)
-        ctx = plain_attention() if plain else None
-        if ctx:
-            ctx.__enter__()
-        mixed, _, _ = tf.forward(prm, cfg, tokens, pos, pool,
-                                 valid_len=valid,
-                                 block_tables=(tables, BLOCK))
-        dec, _, _ = tf.forward(prm, cfg, tok1, pos1, pool,
-                               block_tables=(tables, BLOCK))
-        if ctx:
-            ctx.__exit__()
+        n0 = launch_counts(PAGED_KERNELS)
+        with plain_kernels() if plain else contextlib.nullcontext():
+            mixed, _, _ = tf.forward(prm, cfg, tokens, pos, pool,
+                                     valid_len=valid,
+                                     block_tables=(tables, BLOCK))
+            dec, _, _ = tf.forward(prm, cfg, tok1, pos1, pool,
+                                   block_tables=(tables, BLOCK))
         torch.cuda.synchronize()
         want = 0 if plain else cfg.num_layers
-        assert dec_ops.paged_decode_attention.launches - n0[0] == want
-        assert pf_ops.paged_chunked_prefill_attention.launches - n0[1] \
-            == want
+        n1 = launch_counts(PAGED_KERNELS)
+        assert all(n1[k] - n0[k] == want for k in n0), (n0, n1)
         assert mixed.shape == (B, T, cfg.vocab_size) and mixed.dtype == dtype
         assert torch.isfinite(mixed[:3].float()).all()
         assert torch.isfinite(dec.float()).all()
@@ -382,6 +448,7 @@ class TimedExecutor(TorchExecutor):
     def step_async(self, plan):
         rows = [(take, req.prefill_pos + req.recompute_offset)
                 for req, take in plan.prefill_items]
+        rids = [req.rid for req, _ in plan.prefill_items]
         ctxs = [int(self.positions[self.slots.slot(r.rid)])
                 for r in plan.decode_reqs]
         t0 = time.perf_counter()
@@ -395,7 +462,8 @@ class TimedExecutor(TorchExecutor):
             first = not step.resolved
             eos = inner()
             if first:
-                self.log.append({"prefill": rows, "decode": ctxs,
+                self.log.append({"prefill": rows, "prefill_rids": rids,
+                                 "decode": ctxs,
                                  "dispatch_s": t1 - t0,
                                  "total_s": time.perf_counter() - t0})
             return eos
@@ -472,6 +540,35 @@ def derive_derates(log, cost):
     return out
 
 
+def raise_exec_error(inst, now, exc):
+    """The cluster would quarantine the instance and carry on: here a
+    failed executor step fails the run."""
+    raise exc
+
+
+def count_params(params):
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                yield from leaves(v)
+        elif isinstance(tree, list):
+            for v in tree:
+                yield from leaves(v)
+        else:
+            yield tree
+    return sum(t.numel() for t in leaves(params))
+
+
+def check_finished(cfg, reqs, cluster):
+    for r in reqs:
+        assert r.state.value == "finished", (r.rid, r.state)
+        assert len(r.output_tokens) == r.target_output_len, \
+            (r.rid, len(r.output_tokens), r.target_output_len)
+        assert all(0 <= t < cfg.vocab_size for t in r.output_tokens)
+    assert cluster.exec_errors == 0, cluster.last_exec_error
+    assert cluster.transfer_count > 0, "no flowing-decode migration ran"
+
+
 def phase_serve(cfg, params):
     log = []
     sc = ServingConfig(model=MODEL, tp=1, policy="taichi",
@@ -481,12 +578,6 @@ def phase_serve(cfg, params):
                                     hbm_blocks=8192, device=DEV, log=log)
     slo = SLO(ttft=5.0, tpot=0.2)
     cluster = build_cluster(sc, slo, seed=0, executor_factory=factory)
-
-    def raise_exec_error(inst, now, exc):
-        # the cluster would quarantine the instance and carry on: here a
-        # failed executor step fails the run
-        raise exc
-
     cluster._on_exec_error = raise_exec_error
     wl = WorkloadSpec("smoke",
                       LengthDist(mu=6.5, sigma=0.8, lo=128, hi=2048),
@@ -497,26 +588,16 @@ def phase_serve(cfg, params):
     pool_bytes = sum(ex.cache_bytes() for ex in executors)
 
     # counts to 0 just before the main path, read just after
-    dec_ops.paged_decode_attention.launches = 0
-    pf_ops.paged_chunked_prefill_attention.launches = 0
+    reset_counts(PAGED_KERNELS)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cluster.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {
-        "paged_decode_attention": dec_ops.paged_decode_attention.launches,
-        "paged_chunked_prefill_attention":
-            pf_ops.paged_chunked_prefill_attention.launches}
+    launches = launch_counts(PAGED_KERNELS)
 
-    for r in reqs:
-        assert r.state.value == "finished", (r.rid, r.state)
-        assert len(r.output_tokens) == r.target_output_len, \
-            (r.rid, len(r.output_tokens), r.target_output_len)
-        assert all(0 <= t < cfg.vocab_size for t in r.output_tokens)
-    assert cluster.exec_errors == 0, cluster.last_exec_error
-    assert cluster.transfer_count > 0, "no flowing-decode migration ran"
+    check_finished(cfg, reqs, cluster)
     assert all(n > 0 for n in launches.values()), launches
     iterations = sum(inst.iterations for inst in cluster.policy.instances)
     readbacks = sum(ex.host_readbacks for ex in executors)
@@ -544,6 +625,435 @@ def phase_serve(cfg, params):
 
 
 # ---------------------------------------------------------------------------
+# the dense kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def make_dense_kv(seed, B, hkv, d, dtype):
+    """A layer's [B, S, Hkv, D] dense cache pair, as the model holds it."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    k = torch.randn((B, DENSE_S, hkv, d), device=DEV, generator=g)
+    v = torch.randn((B, DENSE_S, hkv, d), device=DEV, generator=g)
+    return k.to(dtype), v.to(dtype)
+
+
+def check_dense_decode(shape, lengths):
+    shape_name, hq, hkv, d, dtype = shape
+    B = len(lengths)
+    k, v = make_dense_kv(11, B, hkv, d, dtype)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(12)
+    q = torch.randn((B, hq, d), device=DEV, generator=g).to(dtype)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    run = lambda: dec_ops.decode_attention(q, k, v, ln)
+    plain = lambda: dec_ops.decode_attention_ref(q, k, v, ln)
+    out = run()
+    torch.cuda.synchronize()
+    ref = plain()
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert torch.isfinite(out.float()).all(), "dense decode: non-finite"
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], f"dense decode {shape_name} {dtype}: {err}"
+    ref_max = ref.float().abs().max().item()
+    del ref
+    # the library call: one SDPA over the same dense cache with a key mask
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(DENSE_S, device=DEV)[None, :]
+            < ln[:, None])[:, None, None, :]
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None, :], kt, vt, attn_mask=mask, enable_gqa=True)
+    keys = sum(min(n, DENSE_S) for n in lengths)
+    nbytes = (2 * keys * hkv * d * k.element_size()
+              + 2 * q.numel() * q.element_size() + 4 * B)
+    return {"kernel": "decode_attention", "shape": shape_name,
+            "dtype": str(dtype).split(".")[1], "B": B, "S": DENSE_S,
+            "max_ctx": max(lengths), "max_abs_err": err, "tol": TOL[dtype],
+            "plain_max_abs": ref_max,
+            "ms": time_ms(run), "plain_ms": time_ms(plain),
+            "library_ms": time_ms(lib),
+            **bound(nbytes, 4.0 * hq * d * keys, dtype)}
+
+
+def check_dense_prefill(shape, B, tq, prefix):
+    shape_name, hq, hkv, d, dtype = shape
+    k, v = make_dense_kv(13, B, hkv, d, dtype)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(14)
+    q = torch.randn((B, tq, hq, d), device=DEV, generator=g).to(dtype)
+    pre = torch.tensor(prefix, dtype=torch.int32, device=DEV)
+    run = lambda: pf_ops.chunked_prefill_attention(q, k, v, pre)
+    plain = lambda: pf_ops.chunked_prefill_attention_ref(q, k, v, pre)
+    out = run()
+    torch.cuda.synchronize()
+    ref = plain()
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert torch.isfinite(out.float()).all(), "dense prefill: non-finite"
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], f"dense prefill {shape_name} {dtype}: {err}"
+    ref_max = ref.float().abs().max().item()
+    del ref
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    kpos = torch.arange(DENSE_S, device=DEV)[None, :]
+    qpos = prefix + torch.arange(tq, device=DEV)[:, None]
+    mask = ((kpos <= qpos) & (kpos < prefix + tq))[None, None]
+    qt = q.transpose(1, 2)
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    # what this chunk needs: keys below its frontier once, a query-key pair
+    # for every token and every key it may see
+    pairs = B * (tq * prefix + tq * (tq + 1) // 2)
+    nbytes = (2 * B * (prefix + tq) * hkv * d * k.element_size()
+              + 2 * q.numel() * q.element_size() + 4)
+    return {"kernel": "chunked_prefill_attention", "shape": shape_name,
+            "dtype": str(dtype).split(".")[1], "B": B, "Tq": tq,
+            "prefix": prefix, "S": DENSE_S, "max_abs_err": err,
+            "tol": TOL[dtype], "plain_max_abs": ref_max,
+            "ms": time_ms(run), "plain_ms": time_ms(plain),
+            "library_ms": time_ms(lib),
+            **bound(nbytes, 4.0 * hq * d * pairs, dtype)}
+
+
+def check_ssd(shape_name, h, p, n, L, t):
+    """The scan at batch 1 (the engine prefills one slot at a time), in
+    float32 with a non-zero initial state, on inputs drawn as the model
+    makes them: A from -1 to -16 over the heads (``init_mamba2``), dt
+    through softplus, x, B and C through SiLU."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(15)
+    silu = torch.nn.functional.silu
+    x = silu(torch.randn((1, t, h, p), device=DEV, generator=g))
+    dt = torch.nn.functional.softplus(
+        torch.randn((1, t, h), device=DEV, generator=g))
+    A = -torch.linspace(1.0, 16.0, h, device=DEV)
+    B = silu(torch.randn((1, t, 1, n), device=DEV, generator=g))
+    C = silu(torch.randn((1, t, 1, n), device=DEV, generator=g))
+    s0 = 0.1 * torch.randn((1, h, p, n), device=DEV, generator=g)
+    run = lambda: ssd_ops.ssd_scan(x, dt, A, B, C, L, s0)
+    plain = lambda: ssd_ops.ssd_scan_ref(x, dt, A, B, C, L, s0)
+    y, s = run()
+    torch.cuda.synchronize()
+    ry, rs = plain()
+    assert y.dtype == torch.float32 and s.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    err = max((y - ry).abs().max().item(), (s - rs).abs().max().item())
+    assert err <= SSD_TOL, f"ssd {shape_name} L={L}: {err}"
+    ref_max = max(ry.abs().max().item(), rs.abs().max().item())
+    del ry, rs
+    # the fewer operations of two ways to compute the function: the
+    # recurrence token by token (decay the [p, n] state, add xdt B^T, read
+    # C s: 5 p n a token and head) and the chunked algorithm's products
+    # (C B^T and (C B^T o decay) xdt on the causal half of each chunk, the
+    # inter term and the state update)
+    tri = L * (L + 1) // 2
+    flops = min(5 * h * t * p * n,
+                h * (t // L) * (2 * tri * n + 2 * tri * p + 4 * L * n * p))
+    nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B.numel()
+                  + C.numel() + 2 * s0.numel())
+    return {"kernel": "ssd_scan", "shape": shape_name, "dtype": "float32",
+            "h": h, "p": p, "n": n, "L": L, "t": t, "max_abs_err": err,
+            "tol": SSD_TOL, "plain_max_abs": ref_max,
+            "ms": time_ms(run), "plain_ms": time_ms(plain),
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes a chunked "
+                       "SSD scan",
+            **bound(nbytes, flops, torch.float32)}
+
+
+def phase_kernels_dense():
+    """Decode: 8 rows (the serving slots) with contexts to 2048 on a
+    2048-slot cache; prefill: one slot's 1024-token chunk at offset 1024
+    (the P-heavy instance's chunk on the slot path); scan: one slot's
+    1024-token prefill at zamba2-7b's and mamba2-1.3b's widths."""
+    lengths = [2048, 1, 700, 1536, 33, 1024, 2000, 129]
+    cases = []
+    for shape in DENSE_SHAPES:
+        cases.append(check_dense_decode(shape, lengths))
+        cases.append(check_dense_prefill(shape, 1, 1024, 1024))
+    for args in SSD_SHAPES:
+        cases.append(check_ssd(*args))
+    emit("kernels_dense", cases=cases)
+    torch.cuda.empty_cache()
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# zamba2-7b at full width: kernels vs plain versions
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def phase_model_zamba2():
+    """zamba2-7b at full width, cut to its first 12 layers (two of its
+    shared-attention layers), random weights from a seed.  Over a dense
+    cache of 4 slots: slot 0 prefills a 1024-token chunk, slot 1 a
+    215-token chunk and then a 300-token one (scan chunks of 256, 215 and
+    4), then one decode over all four slots with slot 3 masked out.
+    Three ways, as ``phase_model``: bf16 through the kernels, bf16 through
+    the plain versions, float32 through both; the same tolerances."""
+    cfg = dataclasses.replace(get_config(ZAMBA), num_layers=12)
+    params = tf.init_params(1, cfg, device=DEV)
+    rng = np.random.default_rng(21)
+    tokens = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, size=(4, 1024)).astype(np.int64)).to(DEV)
+    chunks = [(0, 0, 1024), (1, 0, 215), (1, 215, 300)]  # slot, start, n
+    pos1 = torch.tensor([[1024], [515], [0], [0]], device=DEV)
+    active = torch.tensor([1, 1, 1, 0], dtype=torch.int32, device=DEV)
+    n_attn = cfg.attn_layer_count()
+    want = {"decode_attention": n_attn,
+            "chunked_prefill_attention": len(chunks) * n_attn,
+            "ssd_scan": len(chunks) * cfg.num_layers}
+
+    def run(prm, dtype, plain):
+        cache = tf.init_cache(cfg, 4, DENSE_S, dtype=dtype, device=DEV)
+        n0 = launch_counts(DENSE_KERNELS)
+        outs = []
+        with plain_kernels() if plain else contextlib.nullcontext():
+            for slot, st, n in chunks:
+                row = {name: leaf[:, slot:slot + 1]
+                       for name, leaf in cache.items()}
+                pos = torch.arange(st, st + n, device=DEV)[None]
+                lg, _, _ = tf.forward(prm, cfg, tokens[slot:slot + 1,
+                                                       st:st + n],
+                                      pos, row)
+                outs.append(lg[0].float())
+            dec, _, _ = tf.forward(prm, cfg, tokens[:, :1], pos1, cache,
+                                   valid_len=active)
+            outs.append(dec[:3, 0].float())
+        torch.cuda.synchronize()
+        n1 = launch_counts(DENSE_KERNELS)
+        got = {k: n1[k] - n0[k] for k in n0}
+        assert got == ({k: 0 for k in want} if plain else want), got
+        for o in outs:
+            assert torch.isfinite(o).all()
+        return outs
+
+    def scaled_err(a, b):
+        worst = 0.0
+        for x, y in zip(a, b):
+            scale = max(y.abs().max().item(), 1.0)
+            worst = max(worst, (x - y).abs().max().item() / scale)
+        return worst
+
+    bf_kernel = run(params, torch.bfloat16, plain=False)
+    bf_plain = run(params, torch.bfloat16, plain=True)
+    params32 = _float_tree(params)
+    f32_kernel = run(params32, torch.float32, plain=False)
+    f32_plain = run(params32, torch.float32, plain=True)
+    del params32, params
+    err_f32 = scaled_err(f32_kernel, f32_plain)
+    err_kernel = scaled_err(bf_kernel, f32_plain)
+    err_plain = scaled_err(bf_plain, f32_plain)
+    assert err_f32 <= MODEL_TOL_F32, err_f32
+    assert err_kernel <= 1.5 * err_plain + MODEL_TOL_BF16_SLACK, \
+        (err_kernel, err_plain)
+    agree = torch.cat([(a.argmax(-1) == b.argmax(-1)).float()
+                       for a, b in zip(bf_kernel, f32_plain)])
+    emit("model_zamba2", model=cfg.name, layers=cfg.num_layers,
+         layers_registered=get_config(ZAMBA).num_layers,
+         attention_layers=n_attn, launches=want,
+         f32_kernel_vs_plain=err_f32, f32_tol=MODEL_TOL_F32,
+         bf16_kernel_vs_f32=err_kernel, bf16_plain_vs_f32=err_plain,
+         bf16_kernel_vs_bf16_plain=scaled_err(bf_kernel, bf_plain),
+         bf16_greedy_agreement_with_f32=agree.mean().item())
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the dense main path: zamba2-7b served by a TaiChi cluster
+# ---------------------------------------------------------------------------
+
+def served_chunks(log, reqs):
+    """rid -> the chunk lengths each request's prompt was prefilled in, as
+    the cluster ran them (one prefill a request: a dense row holds its
+    request to the end, so none is preempted and prefilled again)."""
+    out = {r.rid: [] for r in reqs}
+    for e in log:
+        for (take, pos), rid in zip(e["prefill"], e["prefill_rids"]):
+            assert pos == sum(out[rid]), (rid, pos, out[rid])
+            out[rid].append(take)
+    for r in reqs:
+        assert sum(out[r.rid]) == r.prompt_len, (r.rid, out[r.rid])
+    return out
+
+
+@torch.no_grad()
+def replay_prefill(cfg, params, prompt, chunks):
+    """The prompt prefilled again in the served chunks, as the executor's
+    slot prefill runs them, on a fresh one-slot dense cache.  Returns the
+    last position's logits (float32)."""
+    cache = tf.init_cache(cfg, 1, DENSE_S, device=DEV)
+    row = {name: leaf[:, 0:1] for name, leaf in cache.items()}
+    at = 0
+    for take in chunks:
+        toks = torch.tensor([prompt[at:at + take]], dtype=torch.int32,
+                            device=DEV)
+        pos = torch.tensor([at], dtype=torch.int32, device=DEV)[:, None] \
+            + torch.arange(take, dtype=torch.int32, device=DEV)[None]
+        hidden, _, _ = tf.forward(params, cfg, toks, pos, row,
+                                  compute_logits=False)
+        at += take
+    return (hidden[:, -1] @ params["lm_head"])[0].float()
+
+
+@torch.no_grad()
+def cache_free_logits(cfg, params, prompt):
+    hidden, _, _ = tf.forward(params, cfg,
+                              torch.tensor([prompt], device=DEV),
+                              compute_logits=False)
+    return (hidden[0, -1] @ params["lm_head"]).float()
+
+
+def phase_serve_zamba2(cfg, params, n_requests=16):
+    """Two 8-slot dense instances at ``max_seq`` 2048 sharing one params
+    dict, 16 requests with prompts of 128-1536 tokens (the D-heavy
+    instance prefills them in several 256-token chunks beside its
+    decodes) and 16-48 output tokens.
+
+    Afterwards, each request's first token is held against a replay of
+    its prompt in the chunks it was served in, on a fresh cache, through
+    the kernels: equal, so scheduling beside decodes, row masks and
+    migration changed no state the first token reads.  The same replay
+    through the plain versions and a cache-free forward both ways are
+    reported beside it: bf16 chunked and cache-free forwards round
+    differently, and the plain versions show how much of that is the
+    kernels'."""
+    log = []
+    n_slots = 8
+    sc = ServingConfig(model=ZAMBA, tp=1, policy="taichi",
+                       sliders=Sliders(n_p=1, n_d=1, s_p=1024, s_d=256),
+                       hbm_blocks=n_slots * DENSE_S // BLOCK,
+                       block_size=BLOCK)
+    factory = lambda: TimedExecutor(cfg, params, n_slots=n_slots,
+                                    max_seq=DENSE_S, device=DEV, log=log)
+    slo = SLO(ttft=10.0, tpot=0.5)
+    cluster = build_cluster(sc, slo, seed=0, executor_factory=factory)
+    cluster._on_exec_error = raise_exec_error
+    wl = WorkloadSpec("zamba2-smoke",
+                      LengthDist(mu=6.5, sigma=0.7, lo=128, hi=1536),
+                      LengthDist(mu=3.4, sigma=0.4, lo=16, hi=48),
+                      tokenized=True, vocab_size=cfg.vocab_size)
+    reqs = wl.sample_requests(n_requests, qps=4.0, seed=0)
+    executors = [inst.executor for inst in cluster.policy.instances]
+    assert all(not ex.paged for ex in executors)
+    cache_bytes = sum(ex.cache_bytes() for ex in executors)
+
+    # counts to 0 just before the main path, read just after
+    reset_counts(DENSE_KERNELS)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cluster.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(DENSE_KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+
+    check_finished(cfg, reqs, cluster)
+    assert all(n > 0 for n in launches.values()), launches
+    # the scan and the chunked-prefill kernel run together, on every slot
+    # prefill of more than one token: 81 scans to 13 attention reads
+    n_attn = cfg.attn_layer_count()
+    assert launches["ssd_scan"] * n_attn \
+        == launches["chunked_prefill_attention"] * cfg.num_layers, launches
+    iterations = sum(inst.iterations for inst in cluster.policy.instances)
+    readbacks = sum(ex.host_readbacks for ex in executors)
+    assert 0 < readbacks <= iterations, (readbacks, iterations)
+    out_tokens = sum(len(r.output_tokens) for r in reqs)
+    in_tokens = sum(r.prompt_len for r in reqs)
+    derates = derive_derates(log, cluster.cost)
+
+    chunks = served_chunks(log, reqs)
+    first = {r.rid: r.output_tokens[0] for r in reqs}
+    agree = {k: 0 for k in ("cache_free", "replay", "plain_replay",
+                            "plain_replay_vs_plain_cache_free")}
+    replay_err = 0.0
+    for r in reqs:
+        kernel_cf = int(cache_free_logits(cfg, params,
+                                          r.prompt_tokens).argmax())
+        agree["cache_free"] += int(kernel_cf == first[r.rid])
+        kernel = replay_prefill(cfg, params, r.prompt_tokens, chunks[r.rid])
+        with plain_kernels():
+            plain = replay_prefill(cfg, params, r.prompt_tokens,
+                                   chunks[r.rid])
+            plain_cf = int(cache_free_logits(cfg, params,
+                                             r.prompt_tokens).argmax())
+        agree["replay"] += int(int(kernel.argmax()) == first[r.rid])
+        agree["plain_replay"] += int(int(plain.argmax()) == first[r.rid])
+        agree["plain_replay_vs_plain_cache_free"] += int(
+            int(plain.argmax()) == plain_cf)
+        replay_err = max(replay_err, (kernel - plain).abs().max().item()
+                         / max(plain.abs().max().item(), 1.0))
+    emit("serve_zamba2", model=cfg.name, policy="taichi",
+         requests=len(reqs), slots_per_instance=n_slots, max_seq=DENSE_S,
+         prompt_tokens=in_tokens, output_tokens=out_tokens,
+         wall_s=wall, output_tokens_per_s=out_tokens / wall,
+         total_tokens_per_s=(in_tokens + out_tokens) / wall,
+         iterations=iterations,
+         iterations_by_kind={k: derates[k] for k in (
+             "prefill_only_iterations", "decode_only_iterations",
+             "mixed_iterations")},
+         host_readbacks=readbacks,
+         host_syncs=sum(ex.host_syncs for ex in executors),
+         transfers=cluster.transfer_count, launches=launches,
+         exec_errors=cluster.exec_errors, cache_bytes=cache_bytes,
+         peak_memory_bytes=peak,
+         first_token_agrees_with_cache_free=(
+             f"{agree['cache_free']}/{len(reqs)}"),
+         first_token_equals_replay=f"{agree['replay']}/{len(reqs)}",
+         first_token_agrees_with_plain_replay=(
+             f"{agree['plain_replay']}/{len(reqs)}"),
+         plain_replay_agrees_with_plain_cache_free=(
+             f"{agree['plain_replay_vs_plain_cache_free']}/{len(reqs)}"),
+         replay_kernel_vs_plain_logits=replay_err,
+         measured=derates)
+    # the served path against its own replay: the same kernels on the
+    # same chunks, so only a fault around them could tell the two apart
+    assert agree["replay"] == len(reqs), agree
+    return launches
+
+
+# ---------------------------------------------------------------------------
+
+#: kernel -> (source, the TPU kernel's pl.pallas_call it replaces, the
+#: case of the kernels phases at the main path's shape)
+KERNEL_META = {
+    "paged_decode_attention": (
+        "src/repro_torch/kernels/csrc/paged_decode.cu",
+        "src/repro/kernels/decode_attention/paged_decode.py:122",
+        dict(shape=MODEL, pool="bfloat16")),
+    "paged_chunked_prefill_attention": (
+        "src/repro_torch/kernels/csrc/paged_prefill.cu",
+        "src/repro/kernels/chunked_prefill_attention/paged_prefill.py:135",
+        dict(shape=MODEL, pool="bfloat16")),
+    "decode_attention": (
+        "src/repro_torch/kernels/csrc/decode.cu",
+        "src/repro/kernels/decode_attention/decode_attn.py:74",
+        dict(shape=ZAMBA, dtype="bfloat16")),
+    "chunked_prefill_attention": (
+        "src/repro_torch/kernels/csrc/chunked_prefill.cu",
+        "src/repro/kernels/chunked_prefill_attention/chunked_attn.py:89",
+        dict(shape=ZAMBA, dtype="bfloat16")),
+    "ssd_scan": (
+        "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan/ssd_kernel.py:85",
+        dict(shape=ZAMBA, L=256)),
+}
+
+
+def kernels_line(cases, launches):
+    """One entry a kernel, at the shape of the main path that runs it."""
+    out = []
+    for name, (source, replaces, where) in KERNEL_META.items():
+        c = next(c for c in cases if c["kernel"] == name
+                 and all(c.get(k) == v for k, v in where.items()))
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+    return out
+
 
 def main():
     if not torch.cuda.is_available():
@@ -572,39 +1082,29 @@ def main():
     t0 = time.perf_counter()
     params = tf.init_params(0, cfg, device=DEV)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in (params["embed"], params["lm_head"]))
-    n_params += sum(t.numel() for blk in params["layers"]
-                    for sub in blk.values()
-                    for t in (sub.values() if isinstance(sub, dict)
-                              else [sub]))
-    emit("params", model=cfg.name, parameters=n_params,
+    emit("params", model=cfg.name, parameters=count_params(params),
          seconds=time.perf_counter() - t0)
     phase_model(cfg, params)
     launches = phase_serve(cfg, params)
+    # qwen2.5-3b's weights and pools go before zamba2-7b loads
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # one entry a kernel, at the main path's shape (qwen2.5-3b, bf16 pool)
-    main_cases = {c["kernel"]: c for c in cases
-                  if c["shape"] == MODEL and c["pool"] == "bfloat16"}
-    meta = {
-        "paged_decode_attention": (
-            "src/repro_torch/kernels/csrc/paged_decode.cu",
-            "src/repro/kernels/decode_attention/paged_decode.py:122"),
-        "paged_chunked_prefill_attention": (
-            "src/repro_torch/kernels/csrc/paged_prefill.cu",
-            "src/repro/kernels/chunked_prefill_attention/"
-            "paged_prefill.py:135"),
-    }
-    kernels = []
-    for name, (source, replaces) in meta.items():
-        c = main_cases[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+    cases += phase_kernels_dense()
+    phase_model_zamba2()
+    zcfg = get_config(ZAMBA)
+    t0 = time.perf_counter()
+    zparams = tf.init_params(0, zcfg, device=DEV)
+    torch.cuda.synchronize()
+    emit("params_zamba2", model=zcfg.name, layers=zcfg.num_layers,
+         parameters=count_params(zparams),
+         device_bytes=torch.cuda.memory_allocated(),
+         seconds=time.perf_counter() - t0)
+    launches.update(phase_serve_zamba2(zcfg, zparams))
+
     emit("total", seconds=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels_line(cases, launches)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,22 +2,42 @@
 batches on an actual model, on the card (or on the CPU when the caller
 passes ``device="cpu"``, as the parity tests do).
 
-This slice ports the **paged** executor path of the reference's
-``JaxExecutor``: KV lives in a physical block pool addressed through
-per-slot int32 block tables (``repro_torch.engine.paged``).  Every
-iteration — prefill chunks AND decode steps together — executes as ONE
-fused step: decode rows are packed as length-1 chunks next to the prefill
-rows, attention reads KV through the block tables with the hand-written
-paged kernels, sampling happens on the device, and only token ids cross
-the host boundary.  Prefix reuse and migration are block-table pointer
-updates, and admission is bounded by blocks actually referenced.
+Three executor paths, as in the reference's ``JaxExecutor``:
 
-Not in the port yet, each raising where it would be reached: the batched
-dense and row-wise fallback paths (``paged=False`` / ``batched=False``,
-with the two dense attention kernels), the K-step decode horizon
-(``horizon_capable`` is False, so an ``Instance`` plans ``horizon == 1``
-only), prefix-block export/import for replication and checkpoints, and
-the binding of the host spill tier.
+* **paged** (default for all-ATTN configs): KV lives in a physical block
+  pool addressed through per-slot int32 block tables
+  (``repro_torch.engine.paged``).  Every iteration — prefill chunks AND
+  decode steps together — executes as ONE fused step: decode rows are
+  packed as length-1 chunks next to the prefill rows, attention reads KV
+  through the block tables with the hand-written paged kernels, sampling
+  happens on the device, and only token ids cross the host boundary.
+  Prefix reuse and migration are block-table pointer updates, and
+  admission is bounded by blocks actually referenced.
+* **batched dense** (the families that cannot page — recurrent state —
+  and ``paged=False``): a slot-contiguous dense cache
+  (``models.transformer.init_cache``); packed T-padded prefill where
+  padding is safe, else exact-shape slot rows; one full-slot-batch decode.
+  The dense decode, dense chunked-prefill and SSD-scan kernels carry it.
+* **row-wise reference** (``batched=False``): per-request exact-shape
+  prefill on a copied-out cache row and host-side sampling — the
+  token-exact oracle the other paths are tested against.
+
+The full-slot-batch decode of the dense paths decodes only the rows the
+plan schedules: the others pass a zero ``valid_len``, so they write no KV
+and keep their recurrent (conv / SSM) state exactly as it was.  The
+reference lets that decode advance the recurrent state of every slot, and
+so corrupts a recurrent row whose chunked prefill is part-way done when a
+decode runs beside it; the port follows the model's semantics (the
+cache-free forward) instead.
+
+A dense executor bounds admission by its rows: its ``allocator`` (a
+:class:`DenseRowAllocator`) grants at most one request a row, and a
+migrated row lands when that admission happens.
+
+Not in the port yet, each raising where it would be reached: the K-step
+decode horizon (``horizon_capable`` is False, so an ``Instance`` plans
+``horizon == 1`` only), prefix-block export/import for replication and
+checkpoints, and the binding of the host spill tier.
 
 ``step_async`` dispatches the step and returns a :class:`PendingStep`
 at once (CUDA launches are asynchronous); the single blocking readback
@@ -32,16 +52,14 @@ import numpy as np
 import torch
 
 from repro_torch.cache.prefix_cache import PrefixCache
-from repro_torch.engine import batching
-from repro_torch.engine.kvcache import SlotTable
+from repro_torch.cache.prefix_tree import PrefixTree
+from repro_torch.engine import batching, migrate
+from repro_torch.engine.kvcache import BlockAllocator, OutOfBlocks, SlotTable
 from repro_torch.engine.paged import PagedKVCache
 from repro_torch.engine.request import Request
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ATTN, ModelConfig
 
-_LATER_DENSE = ("the batched dense and row-wise executor paths are not in "
-                "the port yet: they come with the slice that ports the "
-                "dense decode and dense chunked-prefill kernels")
 _LATER_HORIZON = ("the K-step decode horizon is not in the port yet: it "
                   "comes with the slice that ports the online serving loop")
 _LATER_SPILL = ("binding the host spill tier to the pool is not in the "
@@ -159,10 +177,30 @@ def packable(cfg: ModelConfig) -> bool:
     return all(b == ATTN for seg in cfg.segments() for b in seg.pattern)
 
 
+class DenseRowAllocator(BlockAllocator):
+    """Admission for a dense cache of ``n_rows`` rows of ``max_seq``
+    tokens: blocks as any allocator counts them (Algorithm 1's memory
+    gauge), and at most one request a row.  An ``Instance`` adopts it as
+    it adopts a paged executor's allocator, so the requests it admits
+    never outnumber the rows the tensors hold."""
+
+    def __init__(self, n_rows: int, max_seq: int, block_size: int):
+        super().__init__(n_rows * -(-max_seq // block_size), block_size)
+        self.n_rows = n_rows
+
+    def can_allocate(self, tokens: int) -> bool:
+        return len(self._owned) < self.n_rows and super().can_allocate(tokens)
+
+    def allocate(self, rid: int, tokens: int):
+        if rid not in self._owned and len(self._owned) >= self.n_rows:
+            raise OutOfBlocks(f"all {self.n_rows} rows are held")
+        super().allocate(rid, tokens)
+
+
 class TorchExecutor:
     """Implements the core.instance.Executor protocol with a real model
-    on ``device`` — the paged path of the reference's ``JaxExecutor``,
-    with its constructor arguments plus ``device``.
+    on ``device`` — the reference's ``JaxExecutor``, with its constructor
+    arguments plus ``device``.
 
     ``device="cuda"`` (the default) needs a card and raises without one;
     ``device="cpu"`` runs the same code with the kernels' plain versions.
@@ -191,12 +229,6 @@ class TorchExecutor:
             raise RuntimeError(
                 "TorchExecutor(device='cuda'): no CUDA device is available "
                 "(pass device='cpu' to run the plain versions on the CPU)")
-        if not batched or paged is False:
-            raise NotImplementedError(_LATER_DENSE)
-        if not packable(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: only all-ATTN configs can page; "
-                + _LATER_DENSE)
         if kv_spill_blocks:
             raise NotImplementedError(_LATER_SPILL)
         if kv_quant not in (None, "int8"):
@@ -208,7 +240,11 @@ class TorchExecutor:
         self.eos_id = eos_id
         self.greedy = greedy
         self.temperature = temperature
-        self.paged = True       # what an Instance asks before it adopts
+        self.batched = batched
+        self.packed = batched and packable(cfg)
+        # paged wherever paging is exact, unless the caller says no
+        self.paged = self.packed if paged is None else (bool(paged)
+                                                        and self.packed)
         self.t_buckets = (batching.default_t_buckets(max_seq)
                           if t_buckets is None else tuple(sorted(t_buckets)))
         self.slots = SlotTable(n_slots)
@@ -219,12 +255,17 @@ class TorchExecutor:
         # the reference's draws, so every exactness claim is greedy
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
-        self.prefix_cache_enabled = prefix_cache
+        # prefix-KV reuse: KV at position p depends only on tokens [0, p]
+        # iff every layer is full-cache global attention — same gate as
+        # T-padding (and as paging)
+        self.prefix_cache_enabled = prefix_cache and packable(cfg)
         self.cache_block_size = cache_block_size
+        self._donors = PrefixTree(cache_block_size)   # dense donor rows
         self._claimed: set = set()
         self._preadded: set = set()
         self._deferred_states: dict = {}
         self.prefix_adoptions = 0
+        self.prefix_copies = 0
         # async-step pipeline state + observability (test hooks):
         # host_readbacks counts every device->host result
         # materialization; host_syncs counts only the BLOCKING ones
@@ -232,39 +273,67 @@ class TorchExecutor:
         self._pending: Optional[PendingStep] = None
         self.host_readbacks = 0
         self.host_syncs = 0
-        # ---- paged physical cache ------------------------------------
-        self.kv_quant = kv_quant
+        self.kv_quant = kv_quant if self.paged else None
+        self.kv: Optional[PagedKVCache] = None
+        self.cache = None
         self.prefix_cache_obj: Optional[PrefixCache] = None
         # True once an Instance drives allocate/extend/free on our
         # allocator (unified bookkeeping) — the executor then only READS
         # owned-block lists; False = executor self-manages (standalone
         # construction with a separate instance allocator).
         self._external_bookkeeping = False
-        max_blocks = -(-max_seq // cache_block_size)
-        # default pool: dense-equivalent capacity + per-slot growth
-        # headroom (admission is still per-block by actual context)
-        nb = (hbm_blocks if hbm_blocks is not None else
-              n_slots * (max_blocks + self.HEADROOM // cache_block_size))
-        alloc = None
-        if self.prefix_cache_enabled:
-            self.prefix_cache_obj = PrefixCache(nb, cache_block_size)
-            alloc = self.prefix_cache_obj.allocator
-        self.kv = PagedKVCache(cfg, n_slots, max_seq, nb, cache_block_size,
-                               allocator=alloc, quant=kv_quant,
-                               device=self.device)
-        # a migration lands by aliasing cached prefix blocks, so only the
-        # non-shared suffix is charged (cluster._start_transfer)
-        self.prefix_aware_transfer = True
+        if self.paged:
+            max_blocks = -(-max_seq // cache_block_size)
+            # default pool: dense-equivalent capacity + per-slot growth
+            # headroom (admission is still per-block by actual context)
+            nb = (hbm_blocks if hbm_blocks is not None else
+                  n_slots * (max_blocks + self.HEADROOM // cache_block_size))
+            alloc = None
+            if self.prefix_cache_enabled:
+                self.prefix_cache_obj = PrefixCache(nb, cache_block_size)
+                alloc = self.prefix_cache_obj.allocator
+            self.kv = PagedKVCache(cfg, n_slots, max_seq, nb,
+                                   cache_block_size, allocator=alloc,
+                                   quant=kv_quant, device=self.device)
+            self._rows = None
+        else:
+            self.cache = tf.init_cache(cfg, n_slots, max_seq,
+                                       device=self.device)
+            self._rows = DenseRowAllocator(n_slots, max_seq,
+                                           cache_block_size)
+        # only the paged path lands a migration by aliasing cached prefix
+        # blocks; the dense path ships and scatters the full row, so its
+        # transfers must be charged in full (cluster._start_transfer)
+        self.prefix_aware_transfer = self.paged
 
     # ------------------------------------------------------------------
     # device steps
     # ------------------------------------------------------------------
+    def _to_dev(self, a):
+        """A host array as a tensor on the device (copied first: the host
+        arrays are updated right after the launch)."""
+        return torch.from_numpy(np.array(a)).to(self.device,
+                                                non_blocking=True)
+
+    def _event(self):
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
     def _sample_on_device(self, logits):
         if self.greedy:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         probs = torch.softmax(logits.float() / self.temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=self._gen)[:, 0] \
             .to(torch.int32)
+
+    def _last_logits(self, hidden, valid):
+        """``lm_head`` on the last valid hidden state of every row."""
+        idx = torch.clamp(valid - 1, min=0).long()[:, None, None] \
+            .expand(-1, 1, hidden.shape[-1])
+        return torch.gather(hidden, 1, idx)[:, 0] @ self.params["lm_head"]
 
     @torch.no_grad()
     def _mixed_fused(self, tokens, start, valid, tables):
@@ -281,10 +350,65 @@ class TorchExecutor:
             self.params, self.cfg, tokens, positions, self.kv.pool,
             compute_logits=False, valid_len=valid,
             block_tables=(tables, self.cache_block_size))
-        idx = torch.clamp(valid - 1, min=0).long()[:, None, None] \
-            .expand(-1, 1, hidden.shape[-1])
-        last = torch.gather(hidden, 1, idx)[:, 0]
-        logits = last @ self.params["lm_head"]
+        return self._sample_on_device(self._last_logits(hidden, valid))
+
+    @torch.no_grad()
+    def _decode_fused(self, tokens, pos, active):
+        """Full-slot-batch decode over the dense cache; only rows with
+        ``active == 1`` write KV and advance their recurrent state.
+        Returns the token ids [n_slots] on the device."""
+        logits = self._decode(tokens, pos, active)
+        return self._sample_on_device(logits)
+
+    @torch.no_grad()
+    def _prefill_packed(self, tokens, start, valid, slots, n_real: int):
+        """T-padded prefill of several dense rows (all-ATTN configs): the
+        rows' cache is gathered, prefilled and scattered back (the real
+        rows only).  Returns the token ids [B] on the device."""
+        T = tokens.shape[1]
+        positions = torch.clamp(
+            start[:, None] + torch.arange(T, dtype=torch.int32,
+                                          device=self.device)[None],
+            max=self.max_seq - 1)          # padding must not wrap slots
+        rows = {name: leaf.index_select(1, slots)
+                for name, leaf in self.cache.items()}
+        hidden, _, _ = tf.forward(self.params, self.cfg, tokens, positions,
+                                  rows, compute_logits=False,
+                                  valid_len=valid)
+        for name, leaf in self.cache.items():
+            leaf.index_copy_(1, slots[:n_real], rows[name][:, :n_real])
+        return self._sample_on_device(self._last_logits(hidden, valid))
+
+    @torch.no_grad()
+    def _prefill_slot(self, tokens, start, slot: int):
+        """Exact-shape prefill of one slot (families where padding is
+        unsafe), on the slot's views of the cache.  Returns the token id
+        [1] on the device."""
+        positions = start[:, None] + torch.arange(
+            tokens.shape[1], dtype=torch.int32, device=self.device)[None]
+        row = {name: leaf[:, slot:slot + 1]
+               for name, leaf in self.cache.items()}
+        hidden, _, _ = tf.forward(self.params, self.cfg, tokens, positions,
+                                  row, compute_logits=False)
+        return self._sample_on_device(hidden[:, -1] @ self.params["lm_head"])
+
+    # ---- reference path (host-side sampling, logits cross) ----
+    @torch.no_grad()
+    def _decode(self, tokens, pos, active):
+        logits, _, _ = tf.forward(self.params, self.cfg, tokens,
+                                  pos[:, None], self.cache,
+                                  valid_len=active)
+        return logits[:, -1]
+
+    @torch.no_grad()
+    def _prefill_row(self, row_cache, tokens, start):
+        positions = start[:, None] + torch.arange(
+            tokens.shape[1], dtype=torch.int32, device=self.device)[None]
+        logits, _, _ = tf.forward(self.params, self.cfg, tokens, positions,
+                                  row_cache)
+        return logits[:, -1]
+
+    def _sample_batch(self, logits):
         return self._sample_on_device(logits)
 
     # ------------------------------------------------------------------
@@ -292,10 +416,10 @@ class TorchExecutor:
     # ------------------------------------------------------------------
     @property
     def allocator(self):
-        """The block allocator whose ids index the physical pool — an
-        Instance adopts this so admission and the tensors share one
-        source of truth."""
-        return self.kv.allocator
+        """The allocator an Instance adopts so admission and the tensors
+        share one source of truth: the block allocator whose ids index
+        the physical pool, or the dense cache's row allocator."""
+        return self.kv.allocator if self.paged else self._rows
 
     def use_external_bookkeeping(self):
         """An Instance now drives allocate/extend/free on our allocator;
@@ -306,7 +430,7 @@ class TorchExecutor:
         """Bind an instance-owned PrefixCache: its allocator's block ids
         become the pool's physical indices and its radix tree becomes
         the donor index.  Returns False (no rebind) when incompatible."""
-        if pc.block_size != self.cache_block_size:
+        if not self.paged or pc.block_size != self.cache_block_size:
             return False
         if pc.spill is not None:
             raise NotImplementedError(_LATER_SPILL)
@@ -322,24 +446,57 @@ class TorchExecutor:
             torch.cuda.synchronize(self.device)
 
     def cache_bytes(self) -> int:
-        """Device bytes held by the KV block pool."""
-        return self.kv.pool_bytes()
+        """Device bytes held by the KV cache (pool or dense rows)."""
+        if self.paged:
+            return self.kv.pool_bytes()
+        return sum(t.numel() * t.element_size() for t in self.cache.values())
 
     # ------------------------------------------------------------------
     def _acquire_slot(self, rid: int) -> int:
-        """Acquire a free slot.  Retention is block-level on the paged
-        path (the allocator keeps committed blocks), so no slot is a
-        donor worth avoiding."""
-        return self.slots.acquire(rid)
+        """Acquire a free slot, preferring rows that are NOT retained
+        dense prefix donors; whatever row is reused stops being a donor
+        (the paged path retains blocks, not rows)."""
+        avoid = set(self._donors.bids()) if self.prefix_cache_enabled else ()
+        slot = self.slots.acquire(rid, avoid=avoid)
+        self._donors.remove_bid(slot)
+        return slot
 
     def claim_prefix(self, req: Request, max_tokens: int) -> int:
         """Reuse cached KV for the longest resident prefix of
         ``req.prompt_tokens`` (capped at ``max_tokens``, full blocks).
-        Acquires the request's slot; ``add_request`` then skips its own
-        acquisition.  Returns the claimed token count."""
+
+        Dense: adopts the donor row outright when it is free (a finished
+        request's retained slot — zero copies), otherwise copies the
+        matched columns from the live donor's row into a fresh slot.
+        Acquires the request's slot either way; ``add_request`` then
+        skips its own acquisition.  Returns the claimed token count."""
         if not self.prefix_cache_enabled or not req.prompt_tokens:
             return 0
-        return self._claim_prefix_paged(req, max_tokens)
+        if self.paged:
+            return self._claim_prefix_paged(req, max_tokens)
+        bs = self.cache_block_size
+        cap = min(max_tokens, len(req.prompt_tokens) - 1,
+                  self.max_seq - 1) // bs
+        path = self._donors.match(req.prompt_tokens, cap) if cap > 0 else []
+        if not path:
+            return 0
+        donor = path[-1].bid                  # deepest node's row holds
+        h = len(path) * bs                    # the whole matched prefix
+        if self.slots.is_free(donor):
+            self.slots.acquire_slot(req.rid, donor)
+            self._donors.remove_bid(donor)
+            slot = donor
+            self.prefix_adoptions += 1
+        else:
+            slot = self._acquire_slot(req.rid)
+            migrate.copy_prefix(self.cache, donor, slot, h)
+            self.prefix_copies += 1
+        # stale columns >= h are dead: masked by position until prefill/
+        # decode overwrites them in order (same argument as zero_row)
+        self.positions[slot] = h
+        self.last_token[slot] = 0
+        self._claimed.add(req.rid)
+        return h
 
     def _claim_prefix_paged(self, req: Request, max_tokens: int) -> int:
         """Paged prefix hit = copy-on-write block-table aliasing: the new
@@ -376,33 +533,39 @@ class TorchExecutor:
             self._preadded.discard(req.rid)
             return
         if req.rid in self._deferred_states:
-            # memory-full at inject time: the admission gate has now
-            # cleared this request — land the stashed migrated blocks
-            # (plain allocation; the prefix-aliasing fast path is only
-            # taken when the pool had room at inject)
+            # the admission gate has now cleared a migrated-in request:
+            # land its stashed state (paged: memory was full at inject;
+            # dense: a row is taken only with an admission)
             state = self._deferred_states.pop(req.rid)
             slot = self._acquire_slot(req.rid)
+            if not self.paged:
+                self._land_row(req, state, slot)
+                return
             if not self._external_bookkeeping:
                 self.kv.ensure(req.rid, state["pos"] + self.HEADROOM)
             self._land_blocks(req, state, slot)
             return
         if req.rid in self._claimed:
             # slot acquired + prefix KV inherited by claim_prefix;
-            # re-tabling would wipe it.  Unified bookkeeping: the
-            # Instance has taken the block references by now —
-            # materialize the table row
+            # zeroing / re-tabling would wipe it
             self._claimed.discard(req.rid)
-            self.kv.refresh_row(self.slots.slot(req.rid), req.rid)
+            if self.paged:
+                # unified bookkeeping: the Instance has taken the block
+                # references by now — materialize the table row
+                self.kv.refresh_row(self.slots.slot(req.rid), req.rid)
             return
         slot = self._acquire_slot(req.rid)
-        if not self._external_bookkeeping:
-            # recompute_offset: a preempted request re-prefills its
-            # whole context (prompt + regenerated output), not just
-            # the prompt
-            self.kv.ensure(req.rid,
-                           max(req.prompt_len + req.recompute_offset,
-                               1) + self.HEADROOM)
-        self.kv.refresh_row(slot, req.rid)
+        if self.paged:
+            if not self._external_bookkeeping:
+                # recompute_offset: a preempted request re-prefills its
+                # whole context (prompt + regenerated output), not just
+                # the prompt
+                self.kv.ensure(req.rid,
+                               max(req.prompt_len + req.recompute_offset,
+                                   1) + self.HEADROOM)
+            self.kv.refresh_row(slot, req.rid)
+        else:
+            migrate.zero_row(self.cache, slot)
         self.positions[slot] = 0
         if req.prompt_tokens is None:
             req.prompt_tokens = list(
@@ -410,28 +573,62 @@ class TorchExecutor:
                                    size=req.prompt_len))
 
     def release(self, req: Request):
-        # retention is block-level: freeing decrefs, and registered
-        # (committed) blocks are RETAINED in the allocator's LRU —
-        # no slot-donor bookkeeping needed
-        self._claimed.discard(req.rid)
         self._preadded.discard(req.rid)
         self._deferred_states.pop(req.rid, None)
-        slot = self.slots.release(req.rid)
-        if slot is not None:
-            self.kv.clear_row(slot)
-        if not self._external_bookkeeping:
-            self.kv.allocator.free(req.rid)    # no-op if never held
+        if self.paged:
+            # retention is block-level: freeing decrefs, and registered
+            # (committed) blocks are RETAINED in the allocator's LRU —
+            # no slot-donor bookkeeping needed
+            self._claimed.discard(req.rid)
+            slot = self.slots.release(req.rid)
+            if slot is not None:
+                self.kv.clear_row(slot)
+            if not self._external_bookkeeping:
+                self.kv.allocator.free(req.rid)    # no-op if never held
+            return
+        # the freed row keeps its donor registration: its prompt KV
+        # stays adoptable until the slot is reacquired
+        if req.rid in self._claimed and self.slots.has(req.rid):
+            # claim never consumed (admission unwound): the row's prefix
+            # columns are valid KV — re-register it as a retained donor
+            # instead of forfeiting what adoption deregistered
+            slot = self.slots.slot(req.rid)
+            n = int(self.positions[slot]) // self.cache_block_size
+            if n > 0 and req.prompt_tokens:
+                self._donors.insert(
+                    req.prompt_tokens[:n * self.cache_block_size],
+                    [slot] * n)
+        self._claimed.discard(req.rid)
+        self.slots.release(req.rid)
 
     def _register_donor(self, req: Request, slot: int):
-        """Prefill complete (or migrated-in state landed): blocks ARE the
-        donor currency — publish + retain the prompt's full blocks in
-        the shared radix tree (idempotent: the Instance commits through
-        the same PrefixCache at prefill completion)."""
+        """Prefill complete (or migrated-in state landed): publish the
+        prompt's full blocks as reusable prefix KV."""
         if not self.prefix_cache_enabled or not req.prompt_tokens:
             return
-        if (self.prefix_cache_obj is not None
-                and self.kv.allocator.holds(req.rid)):
-            self.prefix_cache_obj.commit(req.rid, req.prompt_tokens)
+        if self.paged:
+            # blocks ARE the donor currency: publish + retain them in
+            # the shared radix tree (idempotent: the Instance commits
+            # through the same PrefixCache at prefill completion)
+            if (self.prefix_cache_obj is not None
+                    and self.kv.allocator.holds(req.rid)):
+                self.prefix_cache_obj.commit(req.rid, req.prompt_tokens)
+            return
+        n = len(req.prompt_tokens) // self.cache_block_size
+        if n > 0:
+            self._donors.insert(
+                req.prompt_tokens[:n * self.cache_block_size], [slot] * n)
+
+    # ------------------------------------------------------------------
+    def _row_cache(self, slot: int):
+        """A copy of one slot's dense cache (the row-wise oracle works on
+        its own row and writes it back)."""
+        return {name: leaf[:, slot:slot + 1].clone()
+                for name, leaf in self.cache.items()}
+
+    def _write_row_cache(self, slot: int, row_cache):
+        for name, leaf in self.cache.items():
+            leaf[:, slot:slot + 1].copy_(row_cache[name])
 
     # ------------------------------------------------------------------
     def execute(self, plan) -> Dict[int, bool]:
@@ -450,7 +647,14 @@ class TorchExecutor:
             raise RuntimeError(
                 "step_async: previous step not resolved — the pipeline "
                 "must be flushed (commit the in-flight iteration) first")
-        step = self._step_paged(plan)
+        if getattr(plan, "horizon", 1) > 1:
+            raise NotImplementedError(_LATER_HORIZON)
+        if self.paged:
+            step = self._step_paged(plan)
+        elif self.batched:
+            step = self._step_batched(plan)
+        else:
+            step = self._step_reference(plan)
         if isinstance(step, PendingStep):
             self._pending = step
         return step
@@ -473,14 +677,15 @@ class TorchExecutor:
         deferred migration payloads.  Per-request frees happened via
         ``release`` during evacuation; this drops the residue."""
         self.abort_step()
+        self._donors = PrefixTree(self.cache_block_size)
         self._claimed.clear()
         self._preadded.clear()
         self._deferred_states.clear()
         for rid in list(self.slots._slot_of):
             slot = self.slots.release(rid)
-            if slot is not None:
+            if self.paged and slot is not None:
                 self.kv.clear_row(slot)
-            if not self._external_bookkeeping \
+            if self.paged and not self._external_bookkeeping \
                     and self.kv.allocator.holds(rid):
                 self.kv.allocator.free(rid)
 
@@ -493,8 +698,6 @@ class TorchExecutor:
         tables make the geometry uniform.  A decode-only iteration stays
         at T == 1 and runs the paged decode kernel; any other runs the
         paged chunked-prefill kernel."""
-        if getattr(plan, "horizon", 1) > 1:
-            raise NotImplementedError(_LATER_HORIZON)
         rows = []   # (req, slot, start, chunk, completes, is_decode)
         if plan.prefill_items:
             for req, start, take, completes in plan.prefill_rows():
@@ -520,16 +723,10 @@ class TorchExecutor:
             [start for _, _, start, _, _, _ in rows],
             table_rows, self.t_buckets, self.kv.max_blocks,
             self.cache_block_size)
-        dev = self.device
         toks_dev = self._mixed_fused(
-            torch.from_numpy(packed.tokens).to(dev, non_blocking=True),
-            torch.from_numpy(packed.start).to(dev, non_blocking=True),
-            torch.from_numpy(packed.valid).to(dev, non_blocking=True),
-            torch.from_numpy(packed.tables).to(dev, non_blocking=True))
-        event = None
-        if dev.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(dev))
+            self._to_dev(packed.tokens), self._to_dev(packed.start),
+            self._to_dev(packed.valid), self._to_dev(packed.tables))
+        event = self._event()
         # position advances are token-independent: land them at dispatch
         # so the next plan (and the decode rows' next dispatch) sees the
         # post-iteration frontier without waiting on the device
@@ -563,6 +760,167 @@ class TorchExecutor:
 
         return PendingStep(self, (toks_dev,), apply, event=event)
 
+    # ---- batched dense path ------------------------------------------
+    def _decode_mask(self, decode_reqs):
+        """[n_slots] int32: 1 for the slots the plan decodes."""
+        active = np.zeros(self.n_slots, np.int32)
+        for req in decode_reqs:
+            active[self.slots.slot(req.rid)] = 1
+        return active
+
+    def _step_batched(self, plan) -> PendingStep:
+        arrays: list = []
+        appliers: list = []
+        if plan.prefill_items:
+            rows = plan.prefill_rows()
+            if self.packed:
+                self._dispatch_prefill_packed(rows, arrays, appliers)
+            else:
+                self._dispatch_prefill_slots(rows, arrays, appliers)
+        if plan.decode_reqs:
+            # one call over the full slot batch: the prefill dispatches
+            # above already advanced their rows' positions, and those rows
+            # (like every row the plan does not decode) are masked out
+            decode_reqs = list(plan.decode_reqs)
+            toks_dev = self._decode_fused(
+                self._to_dev(self.last_token[:, None]),
+                self._to_dev(self.positions),
+                self._to_dev(self._decode_mask(decode_reqs)))
+            arrays.append(toks_dev)
+            for req in decode_reqs:
+                self.positions[self.slots.slot(req.rid)] += 1
+
+            def apply_decode(toks, handle, eos):
+                for req in decode_reqs:
+                    slot = self.slots.slot(req.rid)
+                    tok = int(toks[slot])
+                    req.output_tokens.append(tok)
+                    self.last_token[slot] = tok
+                    handle.emitted[req.rid] = 1
+                    if self.eos_id is not None and tok == self.eos_id:
+                        eos[req.rid] = True
+
+            appliers.append(apply_decode)
+        if not arrays:
+            return ImmediateStep()
+        event = self._event()
+
+        def apply(np_arrays, handle) -> Dict[int, bool]:
+            eos: Dict[int, bool] = {}
+            for arr, fn in zip(np_arrays, appliers):
+                fn(arr, handle, eos)
+            return eos
+
+        return PendingStep(self, arrays, apply, event=event)
+
+    def _dispatch_prefill_packed(self, rows, arrays, appliers):
+        windows = [_prefill_window(req, start, take)
+                   for req, start, take, _ in rows]
+        chunks = [c for c, _ in windows]
+        row_slots = self.slots.slots_of([req.rid for req, _, _, _ in rows])
+        packed = batching.pack_prefill(
+            chunks, [pos for _, pos in windows], row_slots,
+            self.n_slots, self.t_buckets)
+        # padding rows (slot n_slots) gather some real row; only the real
+        # rows are scattered back
+        slots = np.minimum(packed.slots, self.n_slots - 1).astype(np.int64)
+        toks_dev = self._prefill_packed(
+            self._to_dev(packed.tokens), self._to_dev(packed.start),
+            self._to_dev(packed.valid), self._to_dev(slots), len(rows))
+        arrays.append(toks_dev)
+        for i, (req, start, take, completes) in enumerate(rows):
+            self.positions[row_slots[i]] = windows[i][1] + take
+
+        def apply_prefill(toks, handle, eos):
+            for i, (req, start, take, completes) in enumerate(rows):
+                if not completes:
+                    continue
+                slot = row_slots[i]
+                tok = int(toks[i])
+                req.output_tokens.append(tok)
+                self.last_token[slot] = tok
+                self._register_donor(req, slot)
+                if self.eos_id is not None and tok == self.eos_id:
+                    eos[req.rid] = True
+
+        appliers.append(apply_prefill)
+
+    def _dispatch_prefill_slots(self, rows, arrays, appliers):
+        for req, start, take, completes in rows:
+            slot = self.slots.slot(req.rid)
+            tokens, pos = _prefill_window(req, start, take)
+            tok_dev = self._prefill_slot(
+                self._to_dev(np.asarray(tokens, np.int32)[None]),
+                self._to_dev(np.array([pos], np.int32)), slot)
+            self.positions[slot] = pos + take
+            arrays.append(tok_dev)
+
+            def apply_row(toks, handle, eos, req=req, slot=slot,
+                          completes=completes):
+                if not completes:
+                    return
+                tok = int(toks[0])
+                req.output_tokens.append(tok)
+                self.last_token[slot] = tok
+                self._register_donor(req, slot)
+                if self.eos_id is not None and tok == self.eos_id:
+                    eos[req.rid] = True
+
+            appliers.append(apply_row)
+
+    # ---- row-wise reference path (token-exact oracle) ----------------
+    def _step_reference(self, plan) -> PendingStep:
+        """The oracle keeps its simple one-call-per-row structure; it is
+        wrapped lazily so ``step_async`` has a uniform surface (compute
+        runs at resolve — there is nothing worth overlapping here)."""
+        return PendingStep(
+            self, (), lambda arrays, handle: self._execute_reference(plan))
+
+    def _execute_reference(self, plan) -> Dict[int, bool]:
+        eos: Dict[int, bool] = {}
+        # --- chunked prefill (row-wise, exact shapes) ---
+        for req, take in plan.prefill_items:
+            slot = self.slots.slot(req.rid)
+            tokens, pos = _prefill_window(req, req.prefill_pos, take)
+            row_cache = self._row_cache(slot)
+            last = self._prefill_row(
+                row_cache, self._to_dev(np.asarray(tokens, np.int32)[None]),
+                self._to_dev(np.array([pos], np.int32)))
+            self._write_row_cache(slot, row_cache)
+            self.positions[slot] = pos + take
+            if take == req.prefill_remaining:
+                # the sampled first token is NOT yet in the cache; it is
+                # written when fed to the next decode step at position
+                # == prompt_len (positions[slot] already points there).
+                # Sampling happens on device — only the token id crosses.
+                tok_dev = self._sample_batch(last)
+                self.host_readbacks += 1
+                self.host_syncs += 1
+                tok = int(tok_dev.cpu()[0])
+                req.output_tokens.append(tok)
+                self.last_token[slot] = tok
+                self._register_donor(req, slot)
+                if self.eos_id is not None and tok == self.eos_id:
+                    eos[req.rid] = True
+        # --- decode (full slot batch, the scheduled rows only) ---
+        if plan.decode_reqs:
+            logits = self._decode(
+                self._to_dev(self.last_token[:, None]),
+                self._to_dev(self.positions),
+                self._to_dev(self._decode_mask(plan.decode_reqs)))
+            toks = self._sample_batch(logits).cpu().numpy()
+            self.host_readbacks += 1
+            self.host_syncs += 1
+            for req in plan.decode_reqs:
+                slot = self.slots.slot(req.rid)
+                tok = int(toks[slot])
+                req.output_tokens.append(tok)
+                self.last_token[slot] = tok
+                self.positions[slot] += 1
+                if self.eos_id is not None and tok == self.eos_id:
+                    eos[req.rid] = True
+        return eos
+
     # ------------------------------------------------------------------
     def extract_state(self, req: Request):
         if self._pending is not None and not self._pending.resolved:
@@ -573,6 +931,10 @@ class TorchExecutor:
                 f"extract_state({req.rid}): an async step is in flight; "
                 "resolve it (commit the iteration) before ejecting")
         slot = self.slots.slot(req.rid)
+        if not self.paged:
+            return {"row": migrate.extract_row(self.cache, slot),
+                    "pos": int(self.positions[slot]),
+                    "last_token": int(self.last_token[slot])}
         # ship only the blocks actually covering the written context
         # (growth headroom stays home)
         ctx = int(self.positions[slot])
@@ -585,13 +947,37 @@ class TorchExecutor:
                 "kv_format": self.kv_quant or "fp"}
 
     def insert_state(self, req: Request, state):
-        if not isinstance(state, dict) or "paged_blocks" not in state:
+        if self.paged:
+            if not isinstance(state, dict) or "paged_blocks" not in state:
+                raise MigrationFormatError(
+                    f"request {req.rid}: migrated state is in 'dense' "
+                    "row format but the destination executor is 'paged' "
+                    "— dense<->paged cross-migration is unsupported; "
+                    "migrate between like engines")
+            return self._insert_state_paged(req, state)
+        if not isinstance(state, dict) or "row" not in state:
             raise MigrationFormatError(
-                f"request {req.rid}: migrated state is in 'dense' "
-                "row format but the destination executor is 'paged' "
-                "— dense<->paged cross-migration is unsupported; "
-                "migrate between like engines")
-        return self._insert_state_paged(req, state)
+                f"request {req.rid}: migrated state is in 'paged' block "
+                "format but the destination executor is 'dense' — "
+                "dense<->paged cross-migration is unsupported; migrate "
+                "between like engines")
+        row = state["row"]
+        if set(row) != set(self.cache) or any(
+                row[n].shape != self.cache[n][:, 0].shape for n in row):
+            raise MigrationFormatError(
+                f"request {req.rid}: the migrated row's leaves do not "
+                "match this executor's dense cache")
+        # a row is taken only with an admission (the row allocator's
+        # grant): the state lands at add_request
+        self._deferred_states[req.rid] = state
+
+    def _land_row(self, req: Request, state, slot: int):
+        migrate.insert_row(self.cache, state["row"], slot)
+        self.positions[slot] = state["pos"]
+        self.last_token[slot] = state["last_token"]
+        # donor re-registration after migration-in: the landed row holds
+        # valid KV for the full prompt — make it adoptable here too
+        self._register_donor(req, slot)
 
     def _insert_state_paged(self, req: Request, state):
         """Land migrated blocks: alias whatever prefix the destination
@@ -647,6 +1033,10 @@ class TorchExecutor:
 
     def migration_bytes(self, req: Request) -> int:
         slot = self.slots.slot(req.rid)
+        if not self.paged:
+            # the whole row ships (its views: nothing is copied to count)
+            return migrate.row_bytes({name: leaf[:, slot]
+                                      for name, leaf in self.cache.items()})
         n = self.kv.blocks_for(max(int(self.positions[slot]), 1))
         return n * self.cache_block_size * self.kv.token_bytes()
 

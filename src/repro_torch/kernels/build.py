@@ -118,6 +118,23 @@ def _bind(lib: ctypes.CDLL):
         i, i, i, i, i, i, i, i,            # B Tq Hq Hkv D NB block_size n_blk
         i64, i64, i64,
         i, i, p]
+    lib.dense_decode_attention.restype = i
+    lib.dense_decode_attention.argtypes = [
+        p, p, p, p, p,                     # q k v lengths out
+        i, i, i, i, i,                     # B Hq Hkv D S
+        i64, i64, i64,                     # strides (row, position, head)
+        i, i, p]                           # dtypes, stream
+    lib.dense_chunked_prefill_attention.restype = i
+    lib.dense_chunked_prefill_attention.argtypes = [
+        p, p, p, p, p,                     # q k v prefix out
+        i, i, i, i, i, i,                  # B Tq Hq Hkv D S
+        i64, i64, i64,
+        i, i, p]
+    lib.ssd_scan.restype = i
+    lib.ssd_scan.argtypes = [
+        p, p, p, p, p, p, p,               # xdt dA B C s0 y sfin
+        i, i, i, i, i, i, i,               # b T H G P N L
+        i, p]                              # y dtype, stream
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,28 +1,54 @@
-"""Paged chunked-prefill attention with per-row chunk geometry: the
-wrapper of the CUDA kernel ``csrc/paged_prefill.cu`` and its plain
-PyTorch version.
+"""Chunked-prefill attention: the wrappers of the CUDA kernels
+``csrc/paged_prefill.cu`` (per-row chunk geometry over a paged pool) and
+``csrc/chunked_prefill.cu`` (one chunk offset over a dense per-row
+cache), and their plain PyTorch versions.
 
-Replaces the Pallas kernel ``paged_prefill_attention_kernel`` of
-``repro/kernels/chunked_prefill_attention/paged_prefill.py`` (wrapper
-``chunked_prefill_attention/ops.py::paged_chunked_prefill_attention``).
-On the card a long chunk is bound by operations (``4 * Hq * D`` FLOPs for
-every query-key pair under the causal frontier) and a short one by the KV
-bytes it reads.  The design gives one thread block the G query heads of a
-KV head for a tile of tokens, so the group shares each K/V tile; stops the
-KV walk at the tile's causal frontier; lets tiles past ``valid`` leave at
-once (a decode row in a mixed batch costs one KV pass); and reads q as
-``[B, Tq, Hq, D]`` and the pool as the flat ``[P, Hkv, D]`` in place.
-Its two products are f32 FMA loops, far from the tensor-core rate:
-``mma``/``wgmma`` on bf16 tiles is the first thing to change when this
-kernel is made fast.
+``paged_chunked_prefill_attention`` replaces the Pallas kernel
+``paged_prefill_attention_kernel`` of
+``repro/kernels/chunked_prefill_attention/paged_prefill.py``;
+``chunked_prefill_attention`` replaces ``chunked_prefill_attention_kernel``
+of ``chunked_prefill_attention/chunked_attn.py`` (both wrapped in the
+reference's ``chunked_prefill_attention/ops.py``).  On the card a long
+chunk is bound by operations (``4 * Hq * D`` FLOPs for every query-key
+pair under the causal frontier) and a short one by the KV bytes it reads.
+The design gives one thread block the G query heads of a KV head for a
+tile of tokens, so the group shares each K/V tile; stops the KV walk at
+the tile's causal frontier; lets tiles past ``valid`` leave at once (a
+decode row in a mixed batch costs one KV pass); and reads q as
+``[B, Tq, Hq, D]`` and the cache in place (the flat ``[P, Hkv, D]`` pool,
+or the dense ``[B, S, Hkv, D]`` cache through its strides).  Its two
+products are f32 FMA loops, far from the tensor-core rate:
+``mma``/``wgmma`` on bf16 tiles is the first thing to change when these
+kernels are made fast.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_args import (check_launch, gather_kv,
-                                            masked_softmax, pool_args, ptr)
+from repro_torch.kernels.paged_args import (check_launch, dense_args,
+                                            gather_kv, masked_softmax,
+                                            pool_args, ptr)
+
+
+def _attend(q, kd, vd, mask):
+    """q [B, Tq, Hq, D] over float32 keys/values [B, S, Hkv, D] with a
+    mask [B, Tq, S]: masked softmax in float32, result in q's type."""
+    B, Tq, Hq, D = q.shape
+    Hkv = kd.shape[2]
+    qg = q.float().reshape(B, Tq, Hkv, Hq // Hkv, D)
+    s = torch.einsum("btkgd,bskd->bkgts", qg, kd) * (D ** -0.5)
+    p = masked_softmax(s, mask[:, None, None, :, :])
+    o = torch.einsum("bkgts,bskd->btkgd", p, vd)
+    return o.reshape(B, Tq, Hq, D).to(q.dtype)
+
+
+def _chunk_mask(S: int, Tq: int, start, end, device):
+    """``kpos <= start + t`` and ``kpos < end``; start/end [B] -> [B,Tq,S]."""
+    kpos = torch.arange(S, device=device)[None, None, :]
+    qpos = (start[:, None]
+            + torch.arange(Tq, device=device)[None, :])[:, :, None]
+    return (kpos <= qpos) & (kpos < end[:, None, None])
 
 
 def paged_chunked_prefill_attention_ref(q, k_pool, v_pool, tables, start,
@@ -33,23 +59,12 @@ def paged_chunked_prefill_attention_ref(q, k_pool, v_pool, tables, start,
     (``kpos <= start + t`` and ``kpos < start + valid``).  Same arguments
     and result as :func:`paged_chunked_prefill_attention`; tokens past
     ``valid`` hold values the caller drops."""
-    B, Tq, Hq, D = q.shape
-    Hkv = k_pool.shape[1]
-    G = Hq // Hkv
     kd = gather_kv(k_pool, k_scale, tables, block_size)    # [B,S,Hkv,D]
     vd = gather_kv(v_pool, v_scale, tables, block_size)
-    S = kd.shape[1]
     start = start.to(torch.int64)
-    kpos = torch.arange(S, device=q.device)[None, None, :]
-    qpos = (start[:, None]
-            + torch.arange(Tq, device=q.device)[None, :])[:, :, None]
-    end = (start + valid.to(torch.int64))[:, None, None]
-    mask = (kpos <= qpos) & (kpos < end)                   # [B,Tq,S]
-    qg = q.float().reshape(B, Tq, Hkv, G, D)
-    s = torch.einsum("btkgd,bskd->bkgts", qg, kd) * (D ** -0.5)
-    p = masked_softmax(s, mask[:, None, None, :, :])
-    o = torch.einsum("bkgts,bskd->btkgd", p, vd)
-    return o.reshape(B, Tq, Hq, D).to(q.dtype)
+    mask = _chunk_mask(kd.shape[1], q.shape[1], start,
+                       start + valid.to(torch.int64), q.device)
+    return _attend(q, kd, vd, mask)
 
 
 def paged_chunked_prefill_attention(q, k_pool, v_pool, tables, start, valid,
@@ -100,3 +115,55 @@ def paged_chunked_prefill_attention(q, k_pool, v_pool, tables, start, valid,
 
 #: kernel launches made by this wrapper (the plain version never counts)
 paged_chunked_prefill_attention.launches = 0
+
+
+def _prefix_tensor(prefix, device):
+    """The chunk offset as a [1] int32 tensor on ``device`` (a device
+    scalar stays on the device: nobody waits to learn its value)."""
+    if isinstance(prefix, torch.Tensor):
+        return prefix.reshape(1).to(device=device, dtype=torch.int32)
+    return torch.tensor([int(prefix)], dtype=torch.int32, device=device)
+
+
+def chunked_prefill_attention_ref(q, k, v, prefix):
+    """Plain PyTorch version: masked softmax in float32 with the mask of
+    ``chunked_attn.py`` (``kpos <= prefix + t`` and ``kpos < prefix +
+    Tq``).  Same arguments and result as :func:`chunked_prefill_attention`."""
+    B, Tq = q.shape[:2]
+    start = _prefix_tensor(prefix, q.device).to(torch.int64).expand(B)
+    mask = _chunk_mask(k.shape[1], Tq, start, start + Tq, q.device)
+    return _attend(q, k.float(), v.float(), mask)
+
+
+def chunked_prefill_attention(q, k, v, prefix):
+    """Dense chunked-prefill attention: every row of q [B, Tq, Hq, D] is a
+    chunk of Tq tokens at absolute offset ``prefix`` (an int, or a
+    one-element int tensor on q's device), attending over its row of k, v
+    [B, S, Hkv, D] (read in place; slots < prefix + Tq valid, causal
+    within the chunk).  Head dims 64, 112 and 128, up to 16 query heads a
+    KV head, float32 or bfloat16.  Returns [B, Tq, Hq, D] in q's type.
+
+    A CUDA tensor launches the kernel (or raises); only a CPU tensor goes
+    to the plain version."""
+    if q.device.type == "cpu":
+        return chunked_prefill_attention_ref(q, k, v, prefix)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"unsupported device {q.device}")
+    q = q.contiguous()
+    B, Tq, Hq, D = q.shape
+    S, s_b, s_tok, s_head, q_code, kv_code = dense_args(q, k, v)
+    pre = _prefix_tensor(prefix, q.device)
+    out = torch.empty_like(q)
+    lib = build.load_library()
+    with torch.cuda.device(q.device):
+        err = lib.dense_chunked_prefill_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pre.data_ptr(),
+            out.data_ptr(), B, Tq, Hq, k.shape[2], D, S, s_b, s_tok, s_head,
+            q_code, kv_code, torch.cuda.current_stream().cuda_stream)
+    check_launch(err, "chunked_prefill_attention")
+    chunked_prefill_attention.launches += 1
+    return out
+
+
+#: kernel launches made by this wrapper (the plain version never counts)
+chunked_prefill_attention.launches = 0

@@ -1,6 +1,7 @@
-// Shared pieces of the two paged-attention kernels: element loads that
-// widen to float, the page-table dereference, and the tile loader that
-// brings KV rows of the flat [P, Hkv, D] pool into shared memory.
+// Shared pieces of the attention kernels: element loads that widen to
+// float, the two ways keys are addressed (a paged pool through block
+// tables, a dense per-row cache through strides), and the tile loader that
+// brings KV rows into shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -45,7 +46,11 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Geometry of the pool and the page tables, the same for both kernels.
+// A view turns (batch row b, logical position pos) into a token handle,
+// and a (token, KV head) into element offsets of the KV and scale tensors.
+// limit() caps a row's key count at what the storage holds.
+
+// Paged pool [P, Hkv, D] addressed through [B, NB] block tables.
 struct PoolView {
   const int* tables;     // [B, NB] logical block -> physical block (-1 none)
   int NB;                // table width
@@ -54,27 +59,55 @@ struct PoolView {
   long stride_tok;       // elements between tokens of the KV pool
   long stride_head;      // elements between KV heads of one token
   long sc_stride_tok;    // elements between tokens of the scale pool
+
+  __device__ __forceinline__ int limit(int len) const { return len; }
+
+  // Physical token row of logical position `pos` of batch row `b`.
+  // Entries below 0 (unallocated) and past the pool are clamped into
+  // range: every such key is masked by the caller before it contributes.
+  __device__ __forceinline__ long token(int b, int pos) const {
+    int page = pos / block_size;
+    page = page < NB ? page : NB - 1;
+    int blk = tables[static_cast<long>(b) * NB + page];
+    blk = blk < 0 ? 0 : (blk >= n_blk ? n_blk - 1 : blk);
+    return static_cast<long>(blk) * block_size + pos % block_size;
+  }
+  __device__ __forceinline__ long kv_offset(long tok, int h) const {
+    return tok * stride_tok + h * stride_head;
+  }
+  __device__ __forceinline__ long scale_offset(long tok, int h) const {
+    return tok * sc_stride_tok + h;
+  }
 };
 
-// Physical token row of logical position `pos` of batch row `b`.  Entries
-// below 0 (unallocated) and past the pool are clamped into range: every
-// such key is masked by the caller before it can contribute.
-__device__ __forceinline__ long physical_token(const PoolView& pv, int b,
-                                               int pos) {
-  int page = pos / pv.block_size;
-  page = page < pv.NB ? page : pv.NB - 1;
-  int blk = pv.tables[static_cast<long>(b) * pv.NB + page];
-  blk = blk < 0 ? 0 : (blk >= pv.n_blk ? pv.n_blk - 1 : blk);
-  return static_cast<long>(blk) * pv.block_size + pos % pv.block_size;
-}
+// Dense per-row cache [B, S, Hkv, D], read in place through its strides
+// (a layer's view of the model's cache, or one slot of it).
+struct DenseView {
+  long stride_b;         // elements between batch rows
+  long stride_tok;       // elements between positions of a row
+  long stride_head;      // elements between KV heads of one position
+  int S;                 // positions a row holds
+
+  __device__ __forceinline__ int limit(int len) const {
+    return len < S ? len : S;
+  }
+  __device__ __forceinline__ long token(int b, int pos) const {
+    return static_cast<long>(b) * stride_b + static_cast<long>(pos) * stride_tok;
+  }
+  __device__ __forceinline__ long kv_offset(long tok, int h) const {
+    return tok + h * stride_head;
+  }
+  __device__ __forceinline__ long scale_offset(long, int) const { return 0; }
+};
 
 // Load keys [kv0, kv0 + TK) of (row b, KV head h) into dst[TK][DP] as
-// floats, dequantised where the pool is int8.  Keys at or past kv_hi are
-// zero-filled so that a masked probability of 0 never meets a NaN.
-template <typename KT, int D, int DP, int TK, int NT>
+// floats, dequantised where a scale tensor is given.  Keys at or past
+// kv_hi are zero-filled so that a masked probability of 0 never meets a
+// NaN.
+template <typename KT, int D, int DP, int TK, int NT, typename View>
 __device__ __forceinline__ void load_kv_tile(
-    float* dst, const KT* pool, const float* scale, const PoolView& pv,
-    int b, int h, int kv0, int kv_hi, int tid) {
+    float* dst, const KT* kv, const float* scale, const View& view, int b,
+    int h, int kv0, int kv_hi, int tid) {
   constexpr int kChunks = D / 4;               // 4-element chunks per key
   for (int c = tid; c < TK * kChunks; c += NT) {
     const int j = c / kChunks;
@@ -82,10 +115,10 @@ __device__ __forceinline__ void load_kv_tile(
     float v[4] = {0.f, 0.f, 0.f, 0.f};
     const int pos = kv0 + j;
     if (pos < kv_hi) {
-      const long tok = physical_token(pv, b, pos);
-      load4(pool + tok * pv.stride_tok + h * pv.stride_head + d, v);
+      const long tok = view.token(b, pos);
+      load4(kv + view.kv_offset(tok, h) + d, v);
       if (scale != nullptr) {
-        const float s = scale[tok * pv.sc_stride_tok + h];
+        const float s = scale[view.scale_offset(tok, h)];
         v[0] *= s; v[1] *= s; v[2] *= s; v[3] *= s;
       }
     }

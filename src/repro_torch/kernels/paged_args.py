@@ -1,5 +1,6 @@
-"""What the two paged-attention wrappers share: the table gather of the
-plain versions, and the checks and C arguments of the CUDA launches."""
+"""What the attention wrappers share: the table gather and the masked
+softmax of the plain versions, and the checks and C arguments of the
+CUDA launches (paged pools and dense caches)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -92,6 +93,38 @@ def pool_args(q, k_pool, v_pool, tables, block_size: int,
     return (n_blk, k_pool.stride(0), k_pool.stride(1),
             k_scale.stride(0) if quant else 0,
             _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype])
+
+
+def dense_args(q, k, v):
+    """Validate what the dense kernels assume of q and a dense KV cache
+    pair ``[B, S, Hkv, D]`` (read in place through its strides) and return
+    ``(S, stride_b, stride_tok, stride_head, q_code, kv_code)``.  Raises on
+    any device, type, shape or layout the kernels do not take."""
+    D = q.shape[-1]
+    Hq = q.shape[-2]
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
+        raise TypeError(f"unsupported cache types {k.dtype}, {v.dtype}")
+    if D not in (64, 112, 128):
+        raise ValueError(f"head_dim must be 64, 112 or 128, got {D}")
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
+            or k.shape[3] != D:
+        raise ValueError(f"k/v must be [{q.shape[0]}, S, Hkv, {D}], got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    Hkv = k.shape[2]
+    if Hq % Hkv or Hq // Hkv > 16:
+        raise ValueError(f"unsupported GQA grouping Hq={Hq}, Hkv={Hkv}")
+    for t in (k, v):
+        if t.device != q.device:
+            raise ValueError("all tensors must lie on q's device")
+        if t.stride() != k.stride() or t.stride(3) != 1 \
+                or any(s % 4 for s in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError("k and v must share one layout with a "
+                             "contiguous, 16-byte aligned last axis")
+    return (k.shape[1], k.stride(0), k.stride(1), k.stride(2),
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype])
 
 
 def ptr(t: Optional[torch.Tensor]):

@@ -7,7 +7,10 @@ Modes:
                   tokens are really computed, batch replay.  Runs on the
                   card (``--device cuda``, the default) at the registered
                   width; ``--reduced`` serves the small test variant and
-                  ``--device cpu`` the kernels' plain versions.
+                  ``--device cpu`` the kernels' plain versions.  All-ATTN
+                  archs take the paged executor path, Mamba2 and hybrid
+                  archs (mamba2-1.3b, zamba2-7b) the batched dense one, as
+                  ``engine.packable`` decides.
 
 ``--engine live`` (the online serving loop) and ``--serve`` (the network
 front end) are not in the port yet and exit saying so.
@@ -19,6 +22,8 @@ Examples:
       --arch qwen2.5-3b --np 1 --nd 1 --qps 4 --n 32
   PYTHONPATH=src python -m repro_torch.launch.serve --engine torch \\
       --arch smollm-135m --reduced --device cpu --qps 2 --n 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine torch \\
+      --arch zamba2-7b --reduced --device cpu --qps 2 --n 8 --np 1 --nd 1
 """
 from __future__ import annotations
 

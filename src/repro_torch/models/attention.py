@@ -10,18 +10,23 @@ analytically from the per-row write position.
 Where the reference returns an updated copy of a donated cache buffer,
 the port UPDATES THE CACHE IN PLACE and returns the same tensors.
 
-The paged read goes through the hand-written kernels' wrappers: on a
-CUDA tensor they launch the kernel, on a CPU tensor they take the plain
-version.  The sliding-window ring buffer and cross-attention belong to
-the slice that ports the remaining model families.
+The cache read goes through the hand-written kernels' wrappers — paged
+decode / chunked prefill over a block pool, dense decode / chunked
+prefill over a per-row cache: on a CUDA tensor they launch the kernel,
+on a CPU tensor they take the plain version.  A dense chunk padded to a
+common length (``valid_len`` with T > 1) is the one read left to a
+masked softmax, as in the reference.  The sliding-window ring buffer and
+cross-attention belong to the slice that ports the remaining model
+families.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.chunked_prefill_attention.ops import (
-    paged_chunked_prefill_attention)
-from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+    chunked_prefill_attention, paged_chunked_prefill_attention)
+from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                      paged_decode_attention)
 # rows with no valid key (all-masked) come out zero, as the kernels' do
 from repro_torch.kernels.paged_args import masked_softmax as _masked_softmax
 from repro_torch.models.common import apply_rope, dense_init, rms_norm
@@ -234,17 +239,31 @@ def self_attention(p, cfg, x, positions, cache=None, *, window: int = 0,
         mask = causal_mask(positions, positions)
         probs = _masked_softmax(_gqa_scores(q, k), mask)
         return _gqa_out(probs.to(x.dtype), v, p["wo"]), None
-    S = cache["k"].shape[1]
     ck, cv = write_cache(cache["k"], cache["v"], k, v, positions[:, 0],
                          valid_len)
-    # full cache written sequentially: slot j holds position j once the
-    # row's frontier has passed it
-    write_end = positions[:, -1] + 1
-    j = torch.arange(S, device=x.device)[None, :]
-    kv_pos = torch.where(j < write_end[:, None], j, torch.full_like(j, -1))
-    mask = causal_mask(positions, kv_pos)
-    probs = _masked_softmax(_gqa_scores(q, ck), mask)
-    out = _gqa_out(probs.to(x.dtype), cv, p["wo"])
+    if T == 1:
+        # decode: the dense decode kernel over each row's first
+        # position + 1 keys
+        o = decode_attention(q[:, 0], ck, cv,
+                             (positions[:, -1] + 1).to(torch.int32))[:, None]
+    elif valid_len is None:
+        # exact-shape chunk: the dense chunked-prefill kernel takes one
+        # offset for the batch (the engine prefills dense rows one slot
+        # at a time)
+        o = chunked_prefill_attention(q, ck, cv, positions[0, 0])
+    else:
+        # T-padded rows of unequal offsets: masked softmax over the cache
+        S = ck.shape[1]
+        # full cache written sequentially: slot j holds position j once
+        # the row's frontier has passed it
+        write_end = positions[:, -1] + 1
+        j = torch.arange(S, device=x.device)[None, :]
+        kv_pos = torch.where(j < write_end[:, None], j,
+                             torch.full_like(j, -1))
+        mask = causal_mask(positions, kv_pos)
+        probs = _masked_softmax(_gqa_scores(q, ck), mask)
+        return _gqa_out(probs.to(x.dtype), cv, p["wo"]), cache
+    out = o.reshape(B, T, -1).to(x.dtype) @ p["wo"]
     return out, cache
 
 

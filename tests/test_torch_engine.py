@@ -17,7 +17,8 @@ from repro_torch.configs import reduced_config
 from repro_torch.core.estimator import CostModel
 from repro_torch.core.hw import InstanceSpec
 from repro_torch.core.instance import D_HEAVY, P_HEAVY, Instance
-from repro_torch.engine.engine import (MigrationFormatError, TorchExecutor,
+from repro_torch.engine.engine import (DenseRowAllocator,
+                                       MigrationFormatError, TorchExecutor,
                                        packable)
 from repro_torch.engine.request import Request
 
@@ -175,27 +176,43 @@ def test_prefix_claim_aliases_blocks_token_exact(sides):
 
 
 def test_unported_paths_raise_and_formats_are_checked(sides):
+    """``paged=False`` and ``batched=False`` build the dense paths (a
+    slot-contiguous cache, admission by rows); a migrated state of the
+    other format is refused in both directions; the host spill tier still
+    raises."""
     _, side = sides
-    with pytest.raises(NotImplementedError, match="not in the port yet"):
-        TorchExecutor(side.cfg, side.params, 2, 64, paged=False,
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="not in the port yet"):
-        TorchExecutor(side.cfg, side.params, 2, 64, batched=False,
-                      device="cpu")
+    dense = TorchExecutor(side.cfg, side.params, 2, 64, paged=False,
+                          device="cpu")
+    rowwise = TorchExecutor(side.cfg, side.params, 2, 64, batched=False,
+                            device="cpu")
+    for ex in (dense, rowwise):
+        assert not ex.paged and ex.kv is None
+        assert set(ex.cache) == {"k", "v"}
+        assert ex.cache["k"].shape[1:3] == (2, 64)
+        assert isinstance(ex.allocator, DenseRowAllocator)
+        assert ex.cache_bytes() == sum(t.numel() * t.element_size()
+                                       for t in ex.cache.values())
+    assert dense.packed and not rowwise.packed
     with pytest.raises(NotImplementedError, match="spill"):
         TorchExecutor(side.cfg, side.params, 2, 64, kv_spill_blocks=4,
                       device="cpu")
     assert packable(side.cfg)
     ex = TorchExecutor(side.cfg, side.params, 2, 64, device="cpu")
+    assert ex.paged
     assert not hasattr(ex, "export_prefix_blocks")
     assert not hasattr(ex, "import_prefix_blocks")
     req = Request(prompt_len=4, max_new_tokens=2,
                   prompt_tokens=[1, 2, 3, 4])
-    with pytest.raises(MigrationFormatError):
+    with pytest.raises(MigrationFormatError):      # dense -> paged
         ex.insert_state(req, {"row": None, "pos": 0, "last_token": 0})
     with pytest.raises(MigrationFormatError):
         ex.insert_state(req, {"paged_blocks": {}, "n_blocks": 1, "pos": 4,
                               "last_token": 0, "kv_format": "int8"})
+    paged_state = {"paged_blocks": {}, "n_blocks": 1, "pos": 4,
+                   "last_token": 0, "kv_format": "fp"}
+    for ex in (dense, rowwise):                     # paged -> dense
+        with pytest.raises(MigrationFormatError):
+            ex.insert_state(req, paged_state)
 
 
 def test_step_async_defers_the_readback_and_abort_releases(sides):

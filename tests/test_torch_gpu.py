@@ -5,6 +5,8 @@ without jax:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,9 +18,12 @@ from repro_torch.core.instance import D_HEAVY, Instance
 from repro_torch.engine.engine import TorchExecutor
 from repro_torch.engine.request import Request
 from repro_torch.kernels.chunked_prefill_attention.ops import (
+    chunked_prefill_attention, chunked_prefill_attention_ref,
     paged_chunked_prefill_attention, paged_chunked_prefill_attention_ref)
 from repro_torch.kernels.decode_attention.ops import (
-    paged_decode_attention, paged_decode_attention_ref)
+    decode_attention, decode_attention_ref, paged_decode_attention,
+    paged_decode_attention_ref)
+from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_ref
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
 
@@ -127,6 +132,172 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         paged_decode_attention(q, k, v, tables.cpu(), ln, block_size=BS)
 
 
+DENSE_SHAPES = [(8, 2, 64), (9, 3, 64), (16, 2, 128), (4, 4, 112),
+                (32, 32, 112)]
+
+
+def _dense_kv(dev, B, S, hkv, d, dtype, seed=2):
+    """k, v as two slots' views of a larger [2, B + 1, S, Hkv, D] cache:
+    the kernels read strided slot views in place."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    cache = torch.randn((2, B + 1, S, hkv, d), device=dev,
+                        generator=g).to(dtype)
+    return cache[0, 1:], cache[1, 1:]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hq,hkv,d", DENSE_SHAPES)
+def test_dense_decode_kernel_matches_plain_version(cuda, hq, hkv, d, dtype):
+    lengths = [1, 16, 17, 37, 160, 255, 300, 0]     # 300 > S: capped
+    k, v = _dense_kv(cuda, len(lengths), 256, hkv, d, dtype)
+    q = torch.randn((len(lengths), hq, d), device=cuda).to(dtype)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    ref = decode_attention_ref(q, k, v, ln)
+    assert torch.isfinite(out.float()).all() and not out[-1].any()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hq,hkv,d", DENSE_SHAPES)
+@pytest.mark.parametrize("tq,prefix", [(64, 0), (37, 100), (200, 56)])
+def test_dense_prefill_kernel_matches_plain_version(cuda, hq, hkv, d, dtype,
+                                                    tq, prefix):
+    k, v = _dense_kv(cuda, 2, 256, hkv, d, dtype)
+    q = torch.randn((2, tq, hq, d), device=cuda).to(dtype)
+    pre = torch.tensor(prefix, dtype=torch.int32, device=cuda)
+    before = chunked_prefill_attention.launches
+    out = chunked_prefill_attention(q, k, v, pre)
+    torch.cuda.synchronize()
+    assert chunked_prefill_attention.launches == before + 1
+    ref = chunked_prefill_attention_ref(q, k, v, prefix)
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+#: the scan: float32 sums over a chunk in another order (the reference's
+#: kernel tests hold it to the same bound)
+SSD_TOL = 2e-3
+
+
+@pytest.mark.parametrize("b,t,h,g,n,chunk", [
+    (2, 256, 4, 1, 16, 64), (1, 512, 6, 2, 64, 256), (1, 430, 3, 1, 128, 215),
+    (2, 96, 4, 1, 32, 96), (1, 300, 2, 1, 64, 4)])
+def test_ssd_scan_kernel_matches_plain_version(cuda, b, t, h, g, n, chunk):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    x = torch.randn((b, t, h, 64), device=cuda, generator=gen)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, t, h), device=cuda, generator=gen))
+    A = -torch.exp(torch.randn((h,), device=cuda, generator=gen))
+    B = torch.randn((b, t, g, n), device=cuda, generator=gen)
+    C = torch.randn((b, t, g, n), device=cuda, generator=gen)
+    s0 = 0.1 * torch.randn((b, h, 64, n), device=cuda, generator=gen)
+    before = ssd_scan.launches
+    y, s = ssd_scan(x, dt, A, B, C, chunk, s0)
+    y0, _ = ssd_scan(x, dt, A, B, C, chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 2
+    ry, rs = ssd_scan_ref(x, dt, A, B, C, chunk, s0)
+    ry0, _ = ssd_scan_ref(x, dt, A, B, C, chunk)
+    assert y.dtype == torch.float32 and s.dtype == torch.float32
+    assert (y - ry).abs().max().item() <= SSD_TOL
+    assert (s - rs).abs().max().item() <= SSD_TOL
+    assert (y0 - ry0).abs().max().item() <= SSD_TOL
+    yb, _ = ssd_scan(x.bfloat16(), dt.bfloat16(), A, B.bfloat16(),
+                     C.bfloat16(), chunk, s0)
+    assert yb.dtype == torch.bfloat16
+
+
+def test_dense_and_scan_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    k, v = _dense_kv(cuda, 1, 64, 2, 64, torch.float32)
+    q = torch.randn((1, 8, 64), device=cuda)
+    ln = torch.tensor([20], dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        decode_attention(q.half(), k, v, ln)
+    with pytest.raises(ValueError):     # head_dim 32
+        decode_attention(q[..., :32], k[..., :32], v[..., :32], ln)
+    with pytest.raises(ValueError):     # a cache on another device
+        decode_attention(q, k.cpu(), v.cpu(), ln)
+    with pytest.raises(TypeError):
+        chunked_prefill_attention(q[:, None].half(), k, v, 0)
+    with pytest.raises(ValueError):     # head_dim 96
+        chunked_prefill_attention(q[:, None, :, :48], k[..., :48],
+                                  v[..., :48], 0)
+    with pytest.raises(ValueError):     # k on another device
+        chunked_prefill_attention(q[:, None], k.cpu(), v, 0)
+    x = torch.randn((1, 32, 2, 64), device=cuda)
+    dt = torch.ones((1, 32, 2), device=cuda)
+    A = -torch.ones((2,), device=cuda)
+    Bm = torch.randn((1, 32, 1, 16), device=cuda)
+    with pytest.raises(TypeError):
+        ssd_scan(x.half(), dt, A, Bm, Bm, 16)
+    with pytest.raises(ValueError):     # head dim 32
+        ssd_scan(x[..., :32], dt, A, Bm, Bm, 16)
+    with pytest.raises(ValueError):     # state width 8
+        ssd_scan(x, dt, A, Bm[..., :8], Bm[..., :8], 16)
+    with pytest.raises(ValueError):     # chunk past 256 / not dividing t
+        ssd_scan(x, dt, A, Bm, Bm, 24)
+    with pytest.raises(ValueError):     # B on another device
+        ssd_scan(x, dt, A, Bm.cpu(), Bm, 16)
+
+
+def test_hybrid_executor_on_the_card_matches_itself_on_the_cpu(cuda):
+    """Reduced zamba2 at the kernels' head dims (P 64, attention head dim
+    112), float32, greedy: batched dense through the three kernels gives
+    the tokens of the plain versions on the CPU, with prompts prefilled
+    in several chunks beside running decodes."""
+    cfg = dataclasses.replace(reduced_config("zamba2-7b"), ssm_headdim=64,
+                              ssm_state=64, head_dim=112, num_heads=2,
+                              num_kv_heads=2)
+    cpu_params = tf.init_params(6, cfg, device="cpu")
+    rng = np.random.default_rng(6)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, size=n)))
+               for n in (9, 70, 33, 120)]
+
+    def gen(dev):
+        ex = TorchExecutor(cfg, _to_dev(cpu_params, dev), n_slots=5,
+                           max_seq=256, device=dev)
+        inst = Instance(0, D_HEAVY, 48, CostModel(cfg, InstanceSpec(tp=1)),
+                        ex, hbm_blocks=512)
+        reqs = [Request(prompt_len=len(p), max_new_tokens=8,
+                        hidden_output_len=8, prompt_tokens=list(p))
+                for p in prompts]
+        for r in reqs:
+            inst.enqueue_prefill(r)
+        now = 0.0
+        for _ in range(300):
+            if all(r.done() for r in reqs):
+                break
+            dur, done, _ = inst.run_iteration(now)
+            now += dur
+            for r in done:
+                inst.admit_decode(r)
+        assert all(r.done() for r in reqs)
+        return [r.output_tokens for r in reqs]
+
+    counts = lambda: (decode_attention.launches,
+                      chunked_prefill_attention.launches, ssd_scan.launches)
+    before = counts()
+    on_card = gen(cuda)
+    assert all(a > b for a, b in zip(counts(), before))
+    assert on_card == gen(torch.device("cpu"))
+
+
+def _to_dev(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_dev(x, dev) for k, x in tree.items()}
+    if isinstance(tree, list):
+        return [_to_dev(x, dev) for x in tree]
+    return tree.to(dev)
+
+
 @pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["fp", "int8"])
 def test_executor_on_the_card_matches_itself_on_the_cpu(cuda, kv_quant):
     """Reduced float32 config, greedy: the executor through the CUDA
@@ -136,19 +307,12 @@ def test_executor_on_the_card_matches_itself_on_the_cpu(cuda, kv_quant):
     cfg = reduced_config("qwen2.5-3b")
     cpu_params = tf.init_params(5, cfg, device="cpu")
 
-    def to_dev(tree, dev):
-        if isinstance(tree, dict):
-            return {k: to_dev(x, dev) for k, x in tree.items()}
-        if isinstance(tree, list):
-            return [to_dev(x, dev) for x in tree]
-        return tree.to(dev)
-
     rng = np.random.default_rng(5)
     prompts = [list(map(int, rng.integers(1, cfg.vocab_size, size=n)))
                for n in (9, 14, 33, 47, 120)]
 
     def gen(dev):
-        ex = TorchExecutor(cfg, to_dev(cpu_params, dev), n_slots=6,
+        ex = TorchExecutor(cfg, _to_dev(cpu_params, dev), n_slots=6,
                            max_seq=256, t_buckets=(8, 16, 32, 64),
                            kv_quant=kv_quant, device=dev)
         inst = Instance(0, D_HEAVY, 48, CostModel(cfg, InstanceSpec(tp=1)),
