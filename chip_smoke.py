@@ -13,7 +13,9 @@ printing one JSON line; any failure raises and the process exits non-zero
   build          builds the kernel library, seconds taken
   kernels        the two paged kernels against their plain PyTorch
                  versions on the card, at smollm-135m's and qwen2.5-3b's
-                 shapes, fp and int8 pools
+                 shapes, fp and int8 pools, and the decode at the serve
+                 phase's batch (every kernel, plain version and library
+                 call timed with a cold L2: ``time_ms``)
   params, model  qwen2.5-3b at full width: a mixed and a decode
                  ``forward`` through the kernels against the same through
                  the plain versions
@@ -61,6 +63,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.latency import SLO  # noqa: E402
 from repro_torch.core.policies import Sliders  # noqa: E402
+from repro_torch.engine.batching import bucket_batch  # noqa: E402
 from repro_torch.engine.engine import PendingStep, TorchExecutor  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.chunked_prefill_attention import ops as pf_ops  # noqa: E402
@@ -79,6 +82,11 @@ BLOCK = 16
 # the float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# kernel timing: the buffer overwritten before each timed call, and the
+# writes queued first (~85 us each at the HBM rate) so that the host runs
+# ahead of the device
+L2_FLUSH_BYTES = 256 * 2**20
+HEAD_START_FLUSHES = 40
 # float32: sums in another order than the plain version's matmul;
 # bfloat16: one rounding of the output (2^-8 relative) on values of a few
 # units, plus the same for the plain version's
@@ -140,18 +148,27 @@ def emit(phase: str, **kw):
 
 
 def time_ms(fn, n: int = 10) -> float:
-    """Mean milliseconds of ``fn`` over ``n`` launches between two CUDA
-    events, after one warm-up."""
+    """Mean milliseconds of one call of ``fn`` with a cold L2, as a
+    serving step finds its KV: before each call, outside its own pair of
+    CUDA events, a buffer of L2_FLUSH_BYTES (the L2 holds 50 MB) is
+    overwritten.  A queue of such writes first gives the host a head
+    start, so that the events time the device, not the host's enqueueing.
+    One warm-up call before."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=DEV)
     fn()
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(n):
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    for _ in range(HEAD_START_FLUSHES):
+        flush.zero_()
+    for a, b in events:
+        flush.zero_()
+        a.record()
         fn()
-    b.record()
+        b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / n
+    return sum(a.elapsed_time(b) for a, b in events) / n
 
 
 def bound(nbytes, flops, dtype):
@@ -203,7 +220,8 @@ def check_decode(shape_name, quant, lengths, n_blk=8192):
     hq, hkv, d, dtype = SHAPES[shape_name]
     B = len(lengths)
     k, v, ks, vs = make_pool(1, n_blk, hkv, d, dtype, quant)
-    width = -(-max(lengths) // BLOCK)
+    # the table width as the engine buckets it (pack_mixed): a power of 2
+    width = bucket_batch(-(-max(lengths) // BLOCK))
     tables = make_tables(2, n_blk, lengths, width)
     g = torch.Generator(device=DEV)
     g.manual_seed(3)
@@ -308,6 +326,9 @@ def phase_kernels():
         for quant in (False, True):
             cases.append(check_decode(shape, quant, lengths))
             cases.append(check_prefill(shape, quant, starts, valids, 1024))
+    # the decode batch of the serve phase: 32 rows, contexts 128-2176
+    serve_lengths = np.random.default_rng(10).integers(128, 2177, 32)
+    cases.append(check_decode(MODEL, False, serve_lengths.tolist()))
     emit("kernels", cases=cases, launches={
         "paged_decode_attention": dec_ops.paged_decode_attention.launches,
         "paged_chunked_prefill_attention":
@@ -1020,7 +1041,7 @@ KERNEL_META = {
     "paged_decode_attention": (
         "src/repro_torch/kernels/csrc/paged_decode.cu",
         "src/repro/kernels/decode_attention/paged_decode.py:122",
-        dict(shape=MODEL, pool="bfloat16")),
+        dict(shape=MODEL, pool="bfloat16", B=16)),
     "paged_chunked_prefill_attention": (
         "src/repro_torch/kernels/csrc/paged_prefill.cu",
         "src/repro/kernels/chunked_prefill_attention/paged_prefill.py:135",

@@ -109,7 +109,9 @@ def _bind(lib: ctypes.CDLL):
     lib.paged_decode_attention.restype = i
     lib.paged_decode_attention.argtypes = [
         p, p, p, p, p, p, p, p,            # q k v tables lengths ks vs out
+        p, p, p,                           # workspace: acc m l
         i, i, i, i, i, i, i,               # B Hq Hkv D NB block_size n_blk
+        i, i,                              # keys_per_split splits
         i64, i64, i64,                     # strides
         i, i, p]                           # dtypes, stream
     lib.paged_chunked_prefill_attention.restype = i
@@ -121,7 +123,9 @@ def _bind(lib: ctypes.CDLL):
     lib.dense_decode_attention.restype = i
     lib.dense_decode_attention.argtypes = [
         p, p, p, p, p,                     # q k v lengths out
+        p, p, p,                           # workspace: acc m l
         i, i, i, i, i,                     # B Hq Hkv D S
+        i, i,                              # keys_per_split splits
         i64, i64, i64,                     # strides (row, position, head)
         i, i, p]                           # dtypes, stream
     lib.dense_chunked_prefill_attention.restype = i

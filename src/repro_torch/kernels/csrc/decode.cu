@@ -15,58 +15,46 @@
 namespace paged {
 
 template <typename QT, typename KT>
-int dispatch_dense_decode_d(int D, const void* q, const void* k,
-                            const void* v, const int* lengths, void* out,
-                            const DenseView& view, int B, int Hq, int Hkv,
+int dispatch_dense_decode_d(int D, const DecodeArgs& a, const DenseView& view,
                             cudaStream_t stream) {
-  if (D == 64)
-    return launch_decode<QT, KT, 64>(q, k, v, nullptr, nullptr, lengths, out,
-                                     view, B, Hq, Hkv, stream);
-  if (D == 112)
-    return launch_decode<QT, KT, 112>(q, k, v, nullptr, nullptr, lengths,
-                                      out, view, B, Hq, Hkv, stream);
-  if (D == 128)
-    return launch_decode<QT, KT, 128>(q, k, v, nullptr, nullptr, lengths,
-                                      out, view, B, Hq, Hkv, stream);
+  if (D == 64) return launch_decode<QT, KT, 64>(a, view, stream);
+  if (D == 112) return launch_decode<QT, KT, 112>(a, view, stream);
+  if (D == 128) return launch_decode<QT, KT, 128>(a, view, stream);
   return -1;
 }
 
 template <typename QT>
-int dispatch_dense_decode_kv(int kv_dtype, int D, const void* q,
-                             const void* k, const void* v, const int* lengths,
-                             void* out, const DenseView& view, int B, int Hq,
-                             int Hkv, cudaStream_t stream) {
+int dispatch_dense_decode_kv(int kv_dtype, int D, const DecodeArgs& a,
+                             const DenseView& view, cudaStream_t stream) {
   if (kv_dtype == kF32)
-    return dispatch_dense_decode_d<QT, float>(D, q, k, v, lengths, out, view,
-                                              B, Hq, Hkv, stream);
+    return dispatch_dense_decode_d<QT, float>(D, a, view, stream);
   if (kv_dtype == kBF16)
-    return dispatch_dense_decode_d<QT, __nv_bfloat16>(
-        D, q, k, v, lengths, out, view, B, Hq, Hkv, stream);
+    return dispatch_dense_decode_d<QT, __nv_bfloat16>(D, a, view, stream);
   return -1;
 }
 
 }  // namespace paged
 
-// Returns the CUDA error of the launch (0 = launched), or -1 for a shape
+// Returns the CUDA error of the launches (0 = launched), or -1 for a shape
 // or type this kernel does not take.  Launches on `stream`, does not
-// synchronise, allocates nothing.
+// synchronise, allocates nothing: the workspace (f32 [B, Hq, splits, D]
+// partial sums, [B, Hq, splits] m and l) is the caller's, and may be null
+// when splits == ceil(S / keys_per_split) is 1.
 extern "C" int dense_decode_attention(
     const void* q, const void* k, const void* v, const int* lengths,
-    void* out, int B, int Hq, int Hkv, int D, int S, int64_t stride_b,
+    void* out, float* ws_acc, float* ws_m, float* ws_l, int B, int Hq,
+    int Hkv, int D, int S, int keys_per_split, int splits, int64_t stride_b,
     int64_t stride_tok, int64_t stride_head, int q_dtype, int kv_dtype,
     void* stream) {
   using namespace paged;
-  if (B <= 0 || B > 65535 || Hkv <= 0 || Hkv > 65535 || Hq % Hkv != 0 ||
-      Hq / Hkv > kMaxGroup || S <= 0)
-    return -1;
   const DenseView view{stride_b, stride_tok, stride_head, S};
+  const DecodeArgs a{q, k, v, nullptr, nullptr, lengths, out, ws_acc, ws_m,
+                     ws_l, B, Hq, Hkv, keys_per_split, splits};
+  if (check_split_args(a, S) != 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == kF32)
-    return dispatch_dense_decode_kv<float>(kv_dtype, D, q, k, v, lengths, out,
-                                           view, B, Hq, Hkv, s);
+    return dispatch_dense_decode_kv<float>(kv_dtype, D, a, view, s);
   if (q_dtype == kBF16)
-    return dispatch_dense_decode_kv<__nv_bfloat16>(kv_dtype, D, q, k, v,
-                                                   lengths, out, view, B, Hq,
-                                                   Hkv, s);
+    return dispatch_dense_decode_kv<__nv_bfloat16>(kv_dtype, D, a, view, s);
   return -1;
 }

@@ -78,6 +78,33 @@ struct PoolView {
   __device__ __forceinline__ long scale_offset(long tok, int h) const {
     return tok * sc_stride_tok + h;
   }
+
+  // The decode kernel's split-wise addressing: the table entries of the
+  // pages that keys [lo, hi) span are read once, clamped as token() clamps
+  // them, into pages[] (shared memory); token_at() then needs no global
+  // load.  Positions past the table (NB * block_size) are never attended.
+  __host__ __device__ __forceinline__ int span() const {
+    return NB * block_size;
+  }
+  __device__ __forceinline__ int first_page(int lo) const {
+    return lo / block_size;
+  }
+  __device__ __forceinline__ void stage_pages(int b, int lo, int hi,
+                                              int* pages, int tid,
+                                              int nt) const {
+    if (hi <= lo) return;
+    const int p0 = lo / block_size;
+    const int p1 = (hi - 1) / block_size + 1;
+    for (int p = p0 + tid; p < p1; p += nt) {
+      int blk = tables[static_cast<long>(b) * NB + (p < NB ? p : NB - 1)];
+      pages[p - p0] = blk < 0 ? 0 : (blk >= n_blk ? n_blk - 1 : blk);
+    }
+  }
+  __device__ __forceinline__ long token_at(const int* pages, int p0, int,
+                                           int pos) const {
+    return static_cast<long>(pages[pos / block_size - p0]) * block_size +
+           pos % block_size;
+  }
 };
 
 // Dense per-row cache [B, S, Hkv, D], read in place through its strides
@@ -98,6 +125,16 @@ struct DenseView {
     return tok + h * stride_head;
   }
   __device__ __forceinline__ long scale_offset(long, int) const { return 0; }
+
+  // the decode kernel's split-wise addressing (PoolView's): no pages
+  __host__ __device__ __forceinline__ int span() const { return S; }
+  __device__ __forceinline__ int first_page(int) const { return 0; }
+  __device__ __forceinline__ void stage_pages(int, int, int, int*, int,
+                                              int) const {}
+  __device__ __forceinline__ long token_at(const int*, int, int b,
+                                           int pos) const {
+    return token(b, pos);
+  }
 };
 
 // Load keys [kv0, kv0 + TK) of (row b, KV head h) into dst[TK][DP] as

@@ -41,6 +41,14 @@ def masked_softmax(scores, mask):
                        torch.zeros_like(probs))
 
 
+def _aligned16(t, n_outer: int) -> bool:
+    """The data pointer and the ``n_outer`` outer strides, in bytes, are
+    multiples of 16: the kernels bring KV rows in by 16-byte ``cp.async``
+    and 16-byte loads."""
+    return t.data_ptr() % 16 == 0 and all(
+        s * t.element_size() % 16 == 0 for s in t.stride()[:n_outer])
+
+
 def pool_args(q, k_pool, v_pool, tables, block_size: int,
               k_scale: Optional[torch.Tensor],
               v_scale: Optional[torch.Tensor]):
@@ -81,10 +89,11 @@ def pool_args(q, k_pool, v_pool, tables, block_size: int,
     for t in tensors:
         if t.device != q.device:
             raise ValueError("all tensors must lie on q's device")
+    if q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned")
     for pool in (k_pool, v_pool):
         if pool.stride() != k_pool.stride() or pool.stride(2) != 1 \
-                or pool.stride(0) % 4 or pool.stride(1) % 4 \
-                or pool.data_ptr() % 16:
+                or not _aligned16(pool, 2):
             raise ValueError("pools must share one layout with a "
                              "contiguous, 16-byte aligned last axis")
     if tables.dtype != torch.int32 or tables.dim() != 2 \
@@ -115,12 +124,13 @@ def dense_args(q, k, v):
     Hkv = k.shape[2]
     if Hq % Hkv or Hq // Hkv > 16:
         raise ValueError(f"unsupported GQA grouping Hq={Hq}, Hkv={Hkv}")
+    if q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned")
     for t in (k, v):
         if t.device != q.device:
             raise ValueError("all tensors must lie on q's device")
         if t.stride() != k.stride() or t.stride(3) != 1 \
-                or any(s % 4 for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
+                or not _aligned16(t, 3):
             raise ValueError("k and v must share one layout with a "
                              "contiguous, 16-byte aligned last axis")
     return (k.shape[1], k.stride(0), k.stride(1), k.stride(2),

@@ -21,8 +21,8 @@ from repro_torch.kernels.chunked_prefill_attention.ops import (
     chunked_prefill_attention, chunked_prefill_attention_ref,
     paged_chunked_prefill_attention, paged_chunked_prefill_attention_ref)
 from repro_torch.kernels.decode_attention.ops import (
-    decode_attention, decode_attention_ref, paged_decode_attention,
-    paged_decode_attention_ref)
+    decode_attention, decode_attention_ref, keys_per_split,
+    paged_decode_attention, paged_decode_attention_ref)
 from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_ref
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
@@ -130,6 +130,92 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                                k_scale=k[..., 0], v_scale=v[..., 0])
     with pytest.raises(ValueError):     # a table on another device
         paged_decode_attention(q, k, v, tables.cpu(), ln, block_size=BS)
+    # misaligned KV views: cp.async moves 16 bytes, the wrapper raises
+    # rather than falling back
+    wide = torch.zeros((k.shape[0], 2, 68), device=cuda,
+                       dtype=torch.bfloat16)
+    kb = wide[..., :64]                 # head stride 136 bytes
+    with pytest.raises(ValueError):
+        paged_decode_attention(q.bfloat16(), kb, kb, tables, ln,
+                               block_size=BS)
+    flat = torch.zeros(k.numel() + 1, device=cuda)
+    ko = flat[1:].view(k.shape)         # pointer 4 bytes past 16
+    with pytest.raises(ValueError):
+        paged_decode_attention(q, ko, ko, tables, ln, block_size=BS)
+
+
+# -- split-KV boundaries -------------------------------------------------------
+# The decode kernels cut a row's keys into splits of keys_per_split (from
+# the shapes): lengths around one split, a wide table holding one key, the
+# longest rows, and -1 table entries past every length.
+SPLIT_DTYPES = {"f32": (torch.float32, False), "bf16": (torch.bfloat16, False),
+                "int8": (torch.bfloat16, True)}
+
+
+def _split_lengths(kps, top):
+    return [0, 1, kps - 1, kps, kps + 1, top - 1, top, 1]
+
+
+@pytest.mark.parametrize("width", [4096, 32], ids=["splits", "one_split"])
+@pytest.mark.parametrize("kind", sorted(SPLIT_DTYPES))
+@pytest.mark.parametrize("hq,hkv,d", [(16, 2, 128), (9, 3, 64)])
+def test_decode_kernel_across_split_boundaries(cuda, hq, hkv, d, kind,
+                                               width):
+    dtype, quant = SPLIT_DTYPES[kind]
+    kps = keys_per_split(8, hkv, width, BS)
+    lengths = [min(n, width) for n in _split_lengths(kps, width)]
+    n_blk = sum(-(-n // BS) for n in lengths)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(4)
+    k = torch.randn((n_blk * BS + 1, hkv, d), device=cuda, generator=g)
+    v = torch.randn((n_blk * BS + 1, hkv, d), device=cuda, generator=g)
+    scales = {}
+    if quant:
+        (k, ks), (v, vs) = attn.quantize_int8(k), attn.quantize_int8(v)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    perm = torch.randperm(n_blk, generator=torch.Generator().manual_seed(5))
+    tables = torch.full((len(lengths), width // BS), -1, dtype=torch.int32)
+    at = 0
+    for b, n in enumerate(lengths):
+        nb = -(-n // BS)
+        tables[b, :nb] = perm[at:at + nb]
+        at += nb
+    tables = tables.to(cuda)
+    q = torch.randn((len(lengths), hq, d), device=cuda,
+                    generator=g).to(dtype)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = paged_decode_attention.launches
+    out = paged_decode_attention(q, k, v, tables, ln, block_size=BS,
+                                 **scales)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    ref = paged_decode_attention_ref(q, k, v, tables, ln, block_size=BS,
+                                     **scales)
+    assert torch.isfinite(out.float()).all() and not out[0].any()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("S", [4096, 32], ids=["splits", "one_split"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hq,hkv,d", [(32, 32, 112), (8, 2, 64)])
+def test_dense_decode_kernel_across_split_boundaries(cuda, hq, hkv, d, dtype,
+                                                     S):
+    B = 8
+    kps = keys_per_split(B, hkv, S)
+    lengths = [min(n, S) for n in _split_lengths(kps, S)]
+    k, v = _dense_kv(cuda, B, S, hkv, d, dtype, seed=6)
+    q = torch.randn((B, hq, d), device=cuda).to(dtype)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    ref = decode_attention_ref(q, k, v, ln)
+    assert torch.isfinite(out.float()).all() and not out[0].any()
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
 
 
 DENSE_SHAPES = [(8, 2, 64), (9, 3, 64), (16, 2, 128), (4, 4, 112),
@@ -225,6 +311,9 @@ def test_dense_and_scan_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         decode_attention(q[..., :32], k[..., :32], v[..., :32], ln)
     with pytest.raises(ValueError):     # a cache on another device
         decode_attention(q, k.cpu(), v.cpu(), ln)
+    wide = torch.zeros((1, 64, 2, 68), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):     # head stride 136 bytes
+        decode_attention(q.bfloat16(), wide[..., :64], wide[..., :64], ln)
     with pytest.raises(TypeError):
         chunked_prefill_attention(q[:, None].half(), k, v, 0)
     with pytest.raises(ValueError):     # head_dim 96
