@@ -13,9 +13,11 @@ printing one JSON line; any failure raises and the process exits non-zero
   build          builds the kernel library, seconds taken
   kernels        the two paged kernels against their plain PyTorch
                  versions on the card, at smollm-135m's and qwen2.5-3b's
-                 shapes, fp and int8 pools, and the decode at the serve
-                 phase's batch (every kernel, plain version and library
-                 call timed with a cold L2: ``time_ms``)
+                 shapes, fp and int8 pools, the decode at the serve
+                 phase's batch and the prefill at its mixed batch (a
+                 256-token chunk beside 13 decode rows); every kernel,
+                 plain version and library call timed with a cold L2
+                 (``time_ms``)
   params, model  qwen2.5-3b at full width: a mixed and a decode
                  ``forward`` through the kernels against the same through
                  the plain versions
@@ -27,7 +29,9 @@ printing one JSON line; any failure raises and the process exits non-zero
   kernels_dense  the dense decode, dense chunked-prefill and SSD-scan
                  kernels against their plain versions, at smollm-135m's and
                  zamba2-7b's attention shapes (zamba2-7b's in bf16 and
-                 float32) and zamba2-7b's and mamba2-1.3b's scan shapes
+                 float32; its bf16 prefill also at the D-heavy instance's
+                 256-token chunk) and zamba2-7b's and mamba2-1.3b's scan
+                 shapes
   model_zamba2   zamba2-7b at full width, cut to 12 of its 81 layers:
                  slot prefills and a masked full-batch decode over a dense
                  cache, through the kernels against the plain versions
@@ -298,13 +302,16 @@ def check_prefill(shape_name, quant, starts, valids, tq, n_blk=8192):
     qt = q.transpose(1, 2)
     lib = lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kd, vd, attn_mask=mask, enable_gqa=True)
-    # what THIS batch needs: keys below each row's frontier once, and a
-    # query-key pair for every valid token and every key it may see
+    # what THIS batch needs: keys below each row's frontier and their table
+    # entries once, the valid tokens' queries (tokens past `valid` are not
+    # read), the whole output (zeros past `valid`), and a query-key pair for
+    # every valid token and every key it may see
+    live = [b for b in range(B) if valids[b]]
     pairs = sum(n * s + n * (n + 1) // 2 for s, n in zip(starts, valids))
-    nbytes = (2 * sum(ends[b] for b in range(B) if valids[b]) * hkv
-              * pool_item_bytes(k, quant)
-              + 2 * q.numel() * q.element_size()
-              + tables.numel() * 4 + 8 * B)
+    nbytes = (2 * sum(ends[b] for b in live) * hkv * pool_item_bytes(k, quant)
+              + sum(-(-ends[b] // BLOCK) for b in live) * 4
+              + sum(valids) * hq * d * q.element_size()
+              + q.numel() * q.element_size() + 8 * B)
     return {"kernel": "paged_chunked_prefill_attention", "shape": shape_name,
             "pool": "int8" if quant else str(dtype).split(".")[1],
             "B": B, "Tq": tq, "max_ctx": max(ends), "max_abs_err": err,
@@ -329,6 +336,11 @@ def phase_kernels():
     # the decode batch of the serve phase: 32 rows, contexts 128-2176
     serve_lengths = np.random.default_rng(10).integers(128, 2177, 32)
     cases.append(check_decode(MODEL, False, serve_lengths.tolist()))
+    # the D-heavy instance's mixed batch: a 256-token chunk at offset 1024
+    # beside 13 decode rows (contexts 128-2176), padded to Tq 256
+    ctx = np.random.default_rng(11).integers(128, 2177, 13).tolist()
+    cases.append(check_prefill(MODEL, False, [1024] + [c - 1 for c in ctx],
+                               [256] + [1] * 13, 256))
     emit("kernels", cases=cases, launches={
         "paged_decode_attention": dec_ops.paged_decode_attention.launches,
         "paged_chunked_prefill_attention":
@@ -783,13 +795,16 @@ def check_ssd(shape_name, h, p, n, L, t):
 def phase_kernels_dense():
     """Decode: 8 rows (the serving slots) with contexts to 2048 on a
     2048-slot cache; prefill: one slot's 1024-token chunk at offset 1024
-    (the P-heavy instance's chunk on the slot path); scan: one slot's
+    (the P-heavy instance's chunk on the slot path) and, for zamba2-7b in
+    bf16, a 256-token chunk at offset 768 (the D-heavy one's); scan: one slot's
     1024-token prefill at zamba2-7b's and mamba2-1.3b's widths."""
     lengths = [2048, 1, 700, 1536, 33, 1024, 2000, 129]
     cases = []
     for shape in DENSE_SHAPES:
         cases.append(check_dense_decode(shape, lengths))
         cases.append(check_dense_prefill(shape, 1, 1024, 1024))
+    # the D-heavy instance's 256-token chunk, at offset 768
+    cases.append(check_dense_prefill(DENSE_SHAPES[-1], 1, 256, 768))
     for args in SSD_SHAPES:
         cases.append(check_ssd(*args))
     emit("kernels_dense", cases=cases)
@@ -1045,7 +1060,7 @@ KERNEL_META = {
     "paged_chunked_prefill_attention": (
         "src/repro_torch/kernels/csrc/paged_prefill.cu",
         "src/repro/kernels/chunked_prefill_attention/paged_prefill.py:135",
-        dict(shape=MODEL, pool="bfloat16")),
+        dict(shape=MODEL, pool="bfloat16", Tq=1024)),
     "decode_attention": (
         "src/repro_torch/kernels/csrc/decode.cu",
         "src/repro/kernels/decode_attention/decode_attn.py:74",
@@ -1053,7 +1068,7 @@ KERNEL_META = {
     "chunked_prefill_attention": (
         "src/repro_torch/kernels/csrc/chunked_prefill.cu",
         "src/repro/kernels/chunked_prefill_attention/chunked_attn.py:89",
-        dict(shape=ZAMBA, dtype="bfloat16")),
+        dict(shape=ZAMBA, dtype="bfloat16", Tq=1024)),
     "ssd_scan": (
         "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan/ssd_kernel.py:85",

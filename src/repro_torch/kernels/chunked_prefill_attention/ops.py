@@ -16,19 +16,32 @@ tile of tokens, so the group shares each K/V tile; stops the KV walk at
 the tile's causal frontier; lets tiles past ``valid`` leave at once (a
 decode row in a mixed batch costs one KV pass); and reads q as
 ``[B, Tq, Hq, D]`` and the cache in place (the flat ``[P, Hkv, D]`` pool,
-or the dense ``[B, S, Hkv, D]`` cache through its strides).  Its two
-products are f32 FMA loops, far from the tensor-core rate:
-``mma``/``wgmma`` on bf16 tiles is the first thing to change when these
-kernels are made fast.
+or the dense ``[B, S, Hkv, D]`` cache through its strides).  A bf16 query
+over a bf16 or int8 cache runs both products on the tensor cores
+(``mma.sync``, 64-key tiles brought in by ``cp.async``, P into P V as a
+bf16 pair); a float32 query or cache keeps f32 FMA products.
+:func:`tiled_prefill_ref` repeats the tensor-core body's tile walk in
+plain PyTorch for the tests.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_args import (check_launch, dense_args,
+from repro_torch.kernels.paged_args import (MIN_DENOMINATOR, NEG_INF,
+                                            check_launch, dense_args,
                                             gather_kv, masked_softmax,
                                             pool_args, ptr)
+
+#: the tensor-core body's tiling: query rows a warp owns (the MMA's M) and
+#: a thread block (four warps), keys of a K/V tile
+WARP_ROWS = 16
+BLOCK_ROWS = 64
+TILE_KEYS = 64
+#: how the tensor-core body rounds P into P V (``PrefillMmaTile::accumulate``
+#: in ``csrc/prefill_kernel.cuh``): one bf16 put cases above half the bf16
+#: tolerance, the pair hi + lo does not (PERF.md)
+P_ROUND = "pair"
 
 
 def _attend(q, kd, vd, mask):
@@ -49,6 +62,86 @@ def _chunk_mask(S: int, Tq: int, start, end, device):
     qpos = (start[:, None]
             + torch.arange(Tq, device=device)[None, :])[:, :, None]
     return (kpos <= qpos) & (kpos < end[:, None, None])
+
+
+def _round_p(p, p_round):
+    """P as it enters P V: unrounded (``None``), rounded to one bf16
+    (``"bf16"``), or as the bf16 pair hi + lo (``"pair"``)."""
+    if p_round is None:
+        return p
+    hi = p.to(torch.bfloat16).float()
+    if p_round == "bf16":
+        return hi
+    if p_round == "pair":
+        return hi + (p - hi).to(torch.bfloat16).float()
+    raise ValueError(f"unknown p_round {p_round!r}")
+
+
+def tiled_prefill_ref(q, kd, vd, start, valid, *, k_scale=None,
+                      v_scale=None, p_round=None):
+    """Plain PyTorch walk of the tensor-core body of the prefill kernels,
+    tile by tile; only tests use it.
+
+    q [B, Tq, Hq, D]; kd, vd [B, S, Hkv, D] in their stored values (int8
+    values as floats), k_scale / v_scale [B, S, Hkv] per-key scales or
+    None; start, valid [B].  The query rows ``token * G + head`` of one
+    KV head are cut into tiles of ``BLOCK_ROWS`` rows (whole tokens); a
+    tile wholly past ``valid`` is zeros.  Its keys up to
+    ``min(start + valid, start + t0 + tokens, S)`` are walked in tiles of
+    ``TILE_KEYS``: the score times the K scale and ``D ** -0.5``, masked
+    (``kpos <= start + t`` and below the walk's end) only where the tile
+    straddles the first query of a warp's 16 rows or the end, an online
+    softmax with -1e30 for a masked score, P times the V scale and then
+    rounded as ``p_round`` says, the denominator floored at 1e-30."""
+    B, Tq, Hq, D = q.shape
+    S, Hkv = kd.shape[1], kd.shape[2]
+    G = Hq // Hkv
+    TQ = BLOCK_ROWS // G
+    TK = TILE_KEYS
+    out = torch.zeros((B, Tq, Hq, D), dtype=torch.float32)
+    qf, kd, vd = q.float().cpu(), kd.float().cpu(), vd.float().cpu()
+    pad = (0, 0, 0, 0, 0, TK)
+    kd, vd = (torch.nn.functional.pad(x, pad) for x in (kd, vd))
+    if k_scale is not None:
+        k_scale, v_scale = (torch.nn.functional.pad(x.float().cpu(),
+                                                    (0, 0, 0, TK))
+                            for x in (k_scale, v_scale))
+    for b in range(B):
+        st, vl = int(start[b]), int(valid[b])
+        for t0 in range(0, min(vl, Tq), TQ):
+            n_tok = min(TQ, Tq - t0)
+            r = torch.arange(n_tok * G)
+            qpos = st + t0 + r // G
+            warp_q0 = st + t0 + (r // WARP_ROWS * WARP_ROWS) // G
+            hi = min(st + vl, st + t0 + n_tok, S)
+            for h in range(Hkv):
+                rows = qf[b, t0:t0 + n_tok, h * G:(h + 1) * G].reshape(-1, D)
+                m = torch.full((len(r),), NEG_INF)
+                l = torch.zeros(len(r))
+                acc = torch.zeros(len(r), D)
+                for kv0 in range(0, hi, TK):
+                    kpos = torch.arange(kv0, kv0 + TK)
+                    s = rows @ kd[b, kv0:kv0 + TK, h].T * (D ** -0.5)
+                    if k_scale is not None:
+                        s = s * k_scale[b, kv0:kv0 + TK, h]
+                    full = (kv0 + TK <= hi) & (kv0 + TK - 1 <= warp_q0)
+                    live = ((kpos[None] <= qpos[:, None])
+                            & (kpos[None] < hi)) | full[:, None]
+                    s = torch.where(live, s, torch.full((), NEG_INF))
+                    m_new = torch.maximum(m, s.max(dim=-1).values)
+                    alpha = torch.exp(m - m_new)
+                    p = torch.where(live, torch.exp(s - m_new[:, None]),
+                                    torch.zeros(()))
+                    l = l * alpha + p.sum(dim=-1)
+                    if v_scale is not None:
+                        p = p * v_scale[b, kv0:kv0 + TK, h]
+                    acc = (acc * alpha[:, None]
+                           + _round_p(p, p_round) @ vd[b, kv0:kv0 + TK, h])
+                    m = m_new
+                o = acc / l.clamp_min(MIN_DENOMINATOR)[:, None]
+                out[b, t0:t0 + n_tok, h * G:(h + 1) * G] = o.reshape(
+                    n_tok, G, D)
+    return out.to(device=q.device, dtype=q.dtype)
 
 
 def paged_chunked_prefill_attention_ref(q, k_pool, v_pool, tables, start,

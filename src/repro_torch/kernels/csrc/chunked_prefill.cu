@@ -10,8 +10,10 @@
 // a DenseView: the cache is addressed in place through its strides (the
 // Pallas wrapper transposes and pads it on every call), the KV walk stops
 // at each query tile's causal frontier, and keys past S are never read.
-// `prefix` is read on the device, so the caller need not synchronise to
-// learn it.  Bound and design notes: prefill_kernel.cuh.
+// A bf16 query over a bf16 cache takes the tensor-core body (mma.sync,
+// cp.async tile ring), float32 on either side the f32 FMA body.  `prefix`
+// is read on the device, so the caller need not synchronise to learn it.
+// Bound and design notes: prefill_kernel.cuh.
 
 #include "prefill_kernel.cuh"
 

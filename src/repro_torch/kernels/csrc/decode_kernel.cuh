@@ -53,6 +53,7 @@
 #include <math.h>
 #include <type_traits>
 
+#include "mma_common.cuh"
 #include "paged_common.cuh"
 
 namespace paged {
@@ -62,74 +63,6 @@ constexpr int kMaxGroup = 16;           // query heads per KV head, at most
 constexpr int kMaxSplitPages = 257;     // table entries one split may span
 constexpr int kCombineThreads = 128;
 constexpr int kDecodeSmemLimit = 200 * 1024;
-
-// ---- cp.async (sm_80+): 16 bytes, or 4 for a scale; zero-filled when
-// `valid` is false (nothing is read then) -----------------------------------
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// ---- tensor-core pieces (sm_80+ mma.sync, ldmatrix) -------------------------
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t r[2], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(s));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-// c += a b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), c 16 x 8 f32
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-// x = hi + lo to 16 bits: hi the bf16 rounding of x, lo of the remainder
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
-}
-// two int8 values -> bf16x2, exactly (8-bit integers fit bf16's mantissa)
-__device__ __forceinline__ uint32_t pack_i8(int8_t lo, int8_t hi) {
-  return pack_bf16(static_cast<float>(lo), static_cast<float>(hi));
-}
 
 // ---- one 16-byte chunk of a tile row -> floats ----------------------------
 __device__ __forceinline__ void load_chunk(const float* p, float out[4]) {
@@ -166,13 +99,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
-}
-
-// The tensor-core product takes a bf16 query over a bf16 or int8 cache.
-template <typename QT, typename KT>
-constexpr bool uses_tensor_cores() {
-  return std::is_same<QT, __nv_bfloat16>::value &&
-         !std::is_same<KT, float>::value;
 }
 
 // query heads the FMA product computes for: the group rounded up to 1, 4, 8

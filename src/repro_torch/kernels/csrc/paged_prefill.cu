@@ -8,8 +8,12 @@
 // a whole mixed batch: prefill chunks of unequal length, decode rows
 // (valid == 1) and padding rows (valid == 0).  The kernel body is
 // prefill_kernel.cuh's, read through a PoolView that dereferences the
-// block table (clamped; a 32-key tile spans several 16-token pages) into
-// the flat [P, Hkv, D] pool the model holds.  Bound and design notes:
+// block table (clamped; a 64-key tile spans four 16-token pages, each
+// key's entry read once a tile) into the flat [P, Hkv, D] pool the model
+// holds.  A bf16 query over a bf16 or int8 pool takes the tensor-core body
+// (mma.sync, cp.async tile ring in the storage type, int8 widened exactly
+// to bf16 with its scales applied to the score and to P), float32 on
+// either side the f32 FMA body.  Bound and design notes:
 // prefill_kernel.cuh.
 
 #include "prefill_kernel.cuh"

@@ -25,11 +25,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_args import (NEG_INF, check_launch,
-                                            dense_args, gather_kv,
-                                            masked_softmax, pool_args, ptr)
-
-MIN_DENOMINATOR = 1e-30
+from repro_torch.kernels.paged_args import (MIN_DENOMINATOR, NEG_INF,
+                                            check_launch, dense_args,
+                                            gather_kv, masked_softmax,
+                                            pool_args, ptr)
 
 
 def _attend(q, kd, vd, mask):

@@ -9,6 +9,8 @@ import torch
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 NEG_INF = -1e30
+#: the kernels' floor on a softmax denominator (a row with no key is 0)
+MIN_DENOMINATOR = 1e-30
 
 
 def gather_pool(pool, tables, block_size: int):

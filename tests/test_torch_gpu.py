@@ -18,11 +18,13 @@ from repro_torch.core.instance import D_HEAVY, Instance
 from repro_torch.engine.engine import TorchExecutor
 from repro_torch.engine.request import Request
 from repro_torch.kernels.chunked_prefill_attention.ops import (
-    chunked_prefill_attention, chunked_prefill_attention_ref,
-    paged_chunked_prefill_attention, paged_chunked_prefill_attention_ref)
+    P_ROUND, chunked_prefill_attention, chunked_prefill_attention_ref,
+    paged_chunked_prefill_attention, paged_chunked_prefill_attention_ref,
+    tiled_prefill_ref)
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention, decode_attention_ref, keys_per_split,
     paged_decode_attention, paged_decode_attention_ref)
+from repro_torch.kernels.paged_args import gather_pool
 from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_ref
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
@@ -87,20 +89,39 @@ def test_decode_kernel_matches_plain_version(cuda, hq, hkv, d, dtype, quant):
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
 
 
+# (Tq, starts, valids) of a mixed batch: whole and short chunks, decode
+# rows (valid 1) and padding rows (valid 0, all zero out), starts off page
+# and 64-key tile boundaries, chunks whose key tiles straddle the causal
+# frontier, Tq of 1, 63, 64, 65 and 256
+PREFILL_BATCHES = {
+    "tq64": (64, [0, 40, 5, 0, 100, 15], [64, 1, 17, 0, 33, 50]),
+    "tq1": (1, [0, 37, 200, 5], [1, 1, 0, 1]),
+    "tq63": (63, [0, 70, 129, 3, 64], [63, 1, 40, 0, 63]),
+    "tq65": (65, [64, 0, 17, 300, 9], [65, 65, 1, 0, 30]),
+    "tq256": (256, [0, 100, 33, 7], [256, 1, 200, 0]),
+}
+
+
+def _prefill_batch(dev, name, hq, hkv, d, dtype, quant):
+    tq, starts, valids = PREFILL_BATCHES[name]
+    k, v, scales = _pools(dev, hkv, d, dtype, quant)
+    ends = [s + n for s, n in zip(starts, valids)]
+    tables = _tables(dev, ends, max(16, -(-max(ends) // BS)))
+    q = torch.randn((len(starts), tq, hq, d), device=dev).to(dtype)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    vl = torch.tensor(valids, dtype=torch.int32, device=dev)
+    return q, k, v, tables, st, vl, scales
+
+
+@pytest.mark.parametrize("batch", sorted(PREFILL_BATCHES))
 @pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("hq,hkv,d", SHAPES)
 def test_prefill_kernel_matches_plain_version(cuda, hq, hkv, d, dtype,
-                                              quant):
-    starts = [0, 40, 5, 0, 100, 15]
-    valids = [64, 1, 17, 0, 33, 50]
-    tq = 64
-    k, v, scales = _pools(cuda, hkv, d, dtype, quant)
-    tables = _tables(cuda, [s + n for s, n in zip(starts, valids)], 16)
-    q = torch.randn((len(starts), tq, hq, d), device=cuda).to(dtype)
-    st = torch.tensor(starts, dtype=torch.int32, device=cuda)
-    vl = torch.tensor(valids, dtype=torch.int32, device=cuda)
+                                              quant, batch):
+    q, k, v, tables, st, vl, scales = _prefill_batch(cuda, batch, hq, hkv,
+                                                     d, dtype, quant)
     before = paged_chunked_prefill_attention.launches
     out = paged_chunked_prefill_attention(q, k, v, tables, st, vl,
                                           block_size=BS, **scales)
@@ -108,11 +129,45 @@ def test_prefill_kernel_matches_plain_version(cuda, hq, hkv, d, dtype,
     assert paged_chunked_prefill_attention.launches == before + 1
     ref = paged_chunked_prefill_attention_ref(q, k, v, tables, st, vl,
                                               block_size=BS, **scales)
-    assert torch.isfinite(out.float()).all() and not out[3].any()
-    for b, n in enumerate(valids):
+    assert torch.isfinite(out.float()).all()
+    for b, n in enumerate(vl.tolist()):
         if n:
             err = (out[b, :n].float() - ref[b, :n].float()).abs().max()
             assert err.item() <= TOL[dtype], (b, err.item())
+        else:
+            assert not out[b].any(), b
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("hq,hkv,d", [(16, 2, 128), (9, 3, 64), (4, 4, 64)])
+def test_prefill_kernels_match_the_tile_walk(cuda, hq, hkv, d, kind):
+    """Both prefill kernels against tiled_prefill_ref, the plain walk of
+    the tensor-core body (P rounded as the kernel rounds it; f32 inputs
+    take the FMA body, unrounded), within the tolerances."""
+    dtype, quant = SPLIT_DTYPES[kind]
+    q, k, v, tables, st, vl, scales = _prefill_batch(cuda, "tq65", hq, hkv,
+                                                     d, dtype, quant)
+    p_round = P_ROUND if dtype == torch.bfloat16 else None
+    out = paged_chunked_prefill_attention(q, k, v, tables, st, vl,
+                                          block_size=BS, **scales)
+    kd, vd = (gather_pool(x, tables, BS) for x in (k, v))
+    sc = ({} if not quant else
+          {n: gather_pool(x, tables, BS) for n, x in scales.items()})
+    walk = tiled_prefill_ref(q, kd, vd, st, vl, p_round=p_round, **sc)
+    for b, n in enumerate(vl.tolist()):
+        if not n:
+            continue
+        err = (out[b, :n].float() - walk[b, :n].float()).abs().max()
+        assert err.item() <= TOL[dtype], (b, err.item())
+    if quant:
+        return
+    kc, vc = _dense_kv(cuda, 2, 256, hkv, d, dtype)
+    qd = torch.randn((2, 65, hq, d), device=cuda).to(dtype)
+    pre = torch.tensor(70, dtype=torch.int32, device=cuda)
+    out = chunked_prefill_attention(qd, kc, vc, pre)
+    walk = tiled_prefill_ref(qd, kc, vc, torch.full((2,), 70),
+                             torch.full((2,), 65), p_round=p_round)
+    assert (out.float() - walk.float()).abs().max().item() <= TOL[dtype]
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -252,7 +307,8 @@ def test_dense_decode_kernel_matches_plain_version(cuda, hq, hkv, d, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("hq,hkv,d", DENSE_SHAPES)
-@pytest.mark.parametrize("tq,prefix", [(64, 0), (37, 100), (200, 56)])
+@pytest.mark.parametrize("tq,prefix", [(64, 0), (37, 100), (200, 56), (1, 255),
+                                       (63, 70), (65, 129), (256, 0)])
 def test_dense_prefill_kernel_matches_plain_version(cuda, hq, hkv, d, dtype,
                                                     tq, prefix):
     k, v = _dense_kv(cuda, 2, 256, hkv, d, dtype)
