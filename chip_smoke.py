@@ -26,12 +26,15 @@ printing one JSON line; any failure raises and the process exits non-zero
                  ``TorchExecutor`` instance serving 32 seeded requests at
                  the full width of qwen2.5-3b (random weights from a
                  seed), with flowing-decode migrations
-  kernels_dense  the dense decode, dense chunked-prefill and SSD-scan
-                 kernels against their plain versions, at smollm-135m's and
+  kernels_dense  the dense decode and dense chunked-prefill kernels
+                 against their plain versions, at smollm-135m's and
                  zamba2-7b's attention shapes (zamba2-7b's in bf16 and
                  float32; its bf16 prefill also at the D-heavy instance's
-                 256-token chunk) and zamba2-7b's and mamba2-1.3b's scan
-                 shapes
+                 256-token chunk)
+  kernels_ssd    the SSD-scan kernel against its plain version: one slot's
+                 1024-token prefill at zamba2-7b's and mamba2-1.3b's widths
+                 in float32, and zamba2-7b's served prefills in bf16 (887
+                 tokens at chunk 1, 251 at 251, 1024 at 256 and at 1)
   model_zamba2   zamba2-7b at full width, cut to 12 of its 81 layers:
                  slot prefills and a masked full-batch decode over a dense
                  cache, through the kernels against the plain versions
@@ -39,7 +42,13 @@ printing one JSON line; any failure raises and the process exits non-zero
                  the dense main path: the same cluster with two 8-slot
                  dense ``TorchExecutor`` instances serving 16 seeded
                  requests at the full width and depth of zamba2-7b; each
-                 first token held against a replay of its prefill chunks
+                 first token held against a replay of its prefill chunks;
+                 the served (T, chunk) histogram of the scan and its
+                 kernel time over those prefills (``scan_ms_served``)
+
+``python3 chip_smoke.py --scan-only [SERVED]`` runs only the build and
+``kernels_ssd`` and, given a file holding an earlier run's
+``serve_zamba2`` line, the scan time over its served prefills.
 
 Then one line ``{"kernels": [...]}`` with, for every kernel of the port,
 its launches on the main path that runs it, its error against the plain
@@ -49,6 +58,7 @@ them; and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -75,6 +85,7 @@ from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.paged_args import gather_kv  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
+from repro_torch.models import mamba2 as m2  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.sim.simulator import ServingConfig, build_cluster  # noqa: E402
 from repro_torch.sim.workload import LengthDist, WorkloadSpec  # noqa: E402
@@ -118,11 +129,22 @@ DENSE_SHAPES = [   # (name, Hq, Hkv, D, q and cache dtype); zamba2-7b's
 # the scan: float32 sums over a chunk in another order and exp of another
 # library (the reference's kernel tests hold it to the same bound)
 SSD_TOL = 2e-3
-SSD_SHAPES = [   # (model, heads, head dim P, state N, chunk L, tokens t)
-    (ZAMBA, 112, 64, 64, 256, 1024),
-    (ZAMBA, 112, 64, 64, 215, 1075),     # t: five chunks of 215
-    ("mamba2-1.3b", 64, 64, 128, 256, 1024),
+SSD_SHAPES = [   # (model, heads, head dim P, state N, chunk L, tokens t,
+    # x / dt / B / C type)
+    (ZAMBA, 112, 64, 64, 256, 1024, torch.float32),
+    (ZAMBA, 112, 64, 64, 215, 1075, torch.float32),  # five chunks of 215
+    ("mamba2-1.3b", 64, 64, 128, 256, 1024, torch.float32),
+    # served prefills, in bf16 as mamba2.py passes them; by the model's
+    # rule an odd 887-token prefill scans at chunk 1, 251 tokens at 251,
+    # 1024 at 256 (and at chunk 1 beside it: the kernel ignores the chunk)
+    (ZAMBA, 112, 64, 64, 1, 887, torch.bfloat16),
+    (ZAMBA, 112, 64, 64, 251, 251, torch.bfloat16),
+    (ZAMBA, 112, 64, 64, 256, 1024, torch.bfloat16),
+    (ZAMBA, 112, 64, 64, 1, 1024, torch.bfloat16),
 ]
+#: half a bf16 step of a value v is at most 2^-8 |v|: a bf16 y is the
+#: float32 result rounded once, and its error counts beyond that
+BF16_HALF_STEP = 2.0 ** -8
 
 # every kernel wrapper of the port (the launch counters live on these
 # function objects, whatever a comparison swaps into the model's modules)
@@ -746,13 +768,13 @@ def check_dense_prefill(shape, B, tq, prefix):
             **bound(nbytes, 4.0 * hq * d * pairs, dtype)}
 
 
-def check_ssd(shape_name, h, p, n, L, t):
-    """The scan at batch 1 (the engine prefills one slot at a time), in
-    float32 with a non-zero initial state, on inputs drawn as the model
-    makes them: A from -1 to -16 over the heads (``init_mamba2``), dt
-    through softplus, x, B and C through SiLU."""
+def ssd_inputs(h, p, n, t, dtype, seed=15):
+    """One slot's scan inputs (batch 1: the engine prefills one slot at a
+    time), drawn as the model makes them: A from -1 to -16 over the heads
+    (``init_mamba2``), dt through softplus, x, B and C through SiLU, a
+    non-zero float32 initial state; x, dt, B and C in ``dtype``."""
     g = torch.Generator(device=DEV)
-    g.manual_seed(15)
+    g.manual_seed(seed)
     silu = torch.nn.functional.silu
     x = silu(torch.randn((1, t, h, p), device=DEV, generator=g))
     dt = torch.nn.functional.softplus(
@@ -761,43 +783,82 @@ def check_ssd(shape_name, h, p, n, L, t):
     B = silu(torch.randn((1, t, 1, n), device=DEV, generator=g))
     C = silu(torch.randn((1, t, 1, n), device=DEV, generator=g))
     s0 = 0.1 * torch.randn((1, h, p, n), device=DEV, generator=g)
+    x, dt, B, C = (a.to(dtype) for a in (x, dt, B, C))
+    return x, dt, A, B, C, s0
+
+
+def ssd_bound(x, dt, A, B, C, s0):
+    """The scan's least time: every input and output in its own type (y as
+    x, the state in and out in float32) over the HBM rate, or the
+    recurrence's 5 P N operations a token and head (decay the [P, N]
+    state, add x dt B^T, read C s) at the bf16 tensor-core rate, the
+    fastest unit a product can run on within the tolerance."""
+    b, t, h, p = x.shape
+    n = B.shape[-1]
+    nbytes = (2 * x.numel() * x.element_size()
+              + dt.numel() * dt.element_size() + 4 * A.numel()
+              + (B.numel() + C.numel()) * B.element_size()
+              + 2 * 4 * s0.numel())
+    return bound(nbytes, 5.0 * b * t * h * p * n, torch.bfloat16)
+
+
+def check_ssd(shape_name, h, p, n, L, t, dtype):
+    """The scan at chunk L against its float32 plain version on the same
+    values, tolerance 2e-3 (for a bf16 y beyond its own rounding)."""
+    x, dt, A, B, C, s0 = ssd_inputs(h, p, n, t, dtype)
     run = lambda: ssd_ops.ssd_scan(x, dt, A, B, C, L, s0)
     plain = lambda: ssd_ops.ssd_scan_ref(x, dt, A, B, C, L, s0)
     y, s = run()
     torch.cuda.synchronize()
-    ry, rs = plain()
-    assert y.dtype == torch.float32 and s.dtype == torch.float32
+    ry, rs = ssd_ops.ssd_scan_ref(*(a.float() for a in (x, dt, A, B, C)),
+                                  L, s0)
+    assert y.dtype == dtype and s.dtype == torch.float32
     assert torch.isfinite(y).all() and torch.isfinite(s).all()
-    err = max((y - ry).abs().max().item(), (s - rs).abs().max().item())
-    assert err <= SSD_TOL, f"ssd {shape_name} L={L}: {err}"
+    slack = BF16_HALF_STEP if dtype == torch.bfloat16 else 0.0
+    err = max(((y.float() - ry).abs() - slack * ry.abs()).max().item(),
+              (s - rs).abs().max().item())
+    assert err <= SSD_TOL, f"ssd {shape_name} {dtype} L={L} t={t}: {err}"
     ref_max = max(ry.abs().max().item(), rs.abs().max().item())
+    y_raw = (y.float() - ry).abs().max().item()
     del ry, rs
-    # the fewer operations of two ways to compute the function: the
-    # recurrence token by token (decay the [p, n] state, add xdt B^T, read
-    # C s: 5 p n a token and head) and the chunked algorithm's products
-    # (C B^T and (C B^T o decay) xdt on the causal half of each chunk, the
-    # inter term and the state update)
-    tri = L * (L + 1) // 2
-    flops = min(5 * h * t * p * n,
-                h * (t // L) * (2 * tri * n + 2 * tri * p + 4 * L * n * p))
-    nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B.numel()
-                  + C.numel() + 2 * s0.numel())
-    return {"kernel": "ssd_scan", "shape": shape_name, "dtype": "float32",
-            "h": h, "p": p, "n": n, "L": L, "t": t, "max_abs_err": err,
+    return {"kernel": "ssd_scan", "shape": shape_name,
+            "dtype": str(dtype).split(".")[1], "h": h, "p": p, "n": n,
+            "L": L, "t": t, "max_abs_err": err, "y_max_abs_diff": y_raw,
             "tol": SSD_TOL, "plain_max_abs": ref_max,
             "ms": time_ms(run), "plain_ms": time_ms(plain),
             "library_ms": None,
             "library": "none: no single PyTorch call computes a chunked "
                        "SSD scan",
-            **bound(nbytes, flops, torch.float32)}
+            **ssd_bound(x, dt, A, B, C, s0)}
+
+
+def phase_kernels_ssd():
+    cases = [check_ssd(*args) for args in SSD_SHAPES]
+    emit("kernels_ssd", cases=cases)
+    return cases
+
+
+def served_scan_ms(served, n_layers, h, p, n):
+    """Device milliseconds of the scan kernel over a served run's prefills:
+    ``n_layers`` scans of each served ``[T, chunk, count]``, each timed
+    (``time_ms``, cold L2) on bf16 inputs drawn as the model makes them."""
+    total, per_t = 0.0, []
+    for T, chunk, count in served:
+        x, dt, A, B, C, s0 = ssd_inputs(h, p, n, T, torch.bfloat16)
+        ms = time_ms(lambda: ssd_ops.ssd_scan(x, dt, A, B, C, chunk, s0))
+        per_t.append([T, chunk, count, ms])
+        total += count * n_layers * ms
+    return total, per_t
 
 
 def phase_kernels_dense():
     """Decode: 8 rows (the serving slots) with contexts to 2048 on a
     2048-slot cache; prefill: one slot's 1024-token chunk at offset 1024
     (the P-heavy instance's chunk on the slot path) and, for zamba2-7b in
-    bf16, a 256-token chunk at offset 768 (the D-heavy one's); scan: one slot's
-    1024-token prefill at zamba2-7b's and mamba2-1.3b's widths."""
+    bf16, a 256-token chunk at offset 768 (the D-heavy one's).  Then the
+    scan (``phase_kernels_ssd``): one slot's 1024-token prefill at
+    zamba2-7b's and mamba2-1.3b's widths in float32, and served prefills
+    of zamba2-7b in bf16."""
     lengths = [2048, 1, 700, 1536, 33, 1024, 2000, 129]
     cases = []
     for shape in DENSE_SHAPES:
@@ -805,9 +866,8 @@ def phase_kernels_dense():
         cases.append(check_dense_prefill(shape, 1, 1024, 1024))
     # the D-heavy instance's 256-token chunk, at offset 768
     cases.append(check_dense_prefill(DENSE_SHAPES[-1], 1, 256, 768))
-    for args in SSD_SHAPES:
-        cases.append(check_ssd(*args))
     emit("kernels_dense", cases=cases)
+    cases += phase_kernels_ssd()
     torch.cuda.empty_cache()
     return cases
 
@@ -999,6 +1059,14 @@ def phase_serve_zamba2(cfg, params, n_requests=16):
     derates = derive_derates(log, cluster.cost)
 
     chunks = served_chunks(log, reqs)
+    # every slot prefill of more than one token scans once a layer, at the
+    # chunk the model's rule picks for its length
+    served = collections.Counter(
+        (take, m2.scan_chunk(cfg, take)) for takes in chunks.values()
+        for take in takes if take > 1)
+    served = sorted([T, c, k] for (T, c), k in served.items())
+    assert sum(k for _, _, k in served) * cfg.num_layers \
+        == launches["ssd_scan"], (served, launches)
     first = {r.rid: r.output_tokens[0] for r in reqs}
     agree = {k: 0 for k in ("cache_free", "replay", "plain_replay",
                             "plain_replay_vs_plain_cache_free")}
@@ -1019,6 +1087,9 @@ def phase_serve_zamba2(cfg, params, n_requests=16):
             int(plain.argmax()) == plain_cf)
         replay_err = max(replay_err, (kernel - plain).abs().max().item()
                          / max(plain.abs().max().item(), 1.0))
+    scan_ms, scan_per_t = served_scan_ms(
+        served, cfg.num_layers, cfg.ssm_nheads, cfg.ssm_headdim,
+        cfg.ssm_state)
     emit("serve_zamba2", model=cfg.name, policy="taichi",
          requests=len(reqs), slots_per_instance=n_slots, max_seq=DENSE_S,
          prompt_tokens=in_tokens, output_tokens=out_tokens,
@@ -1041,7 +1112,8 @@ def phase_serve_zamba2(cfg, params, n_requests=16):
          plain_replay_agrees_with_plain_cache_free=(
              f"{agree['plain_replay_vs_plain_cache_free']}/{len(reqs)}"),
          replay_kernel_vs_plain_logits=replay_err,
-         measured=derates)
+         served_prefills=served, scan_ms_served=scan_ms,
+         scan_ms_by_prefill=scan_per_t, measured=derates)
     # the served path against its own replay: the same kernels on the
     # same chunks, so only a fault around them could tell the two apart
     assert agree["replay"] == len(reqs), agree
@@ -1072,7 +1144,7 @@ KERNEL_META = {
     "ssd_scan": (
         "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan/ssd_kernel.py:85",
-        dict(shape=ZAMBA, L=256)),
+        dict(shape=ZAMBA, L=256, dtype="float32")),
 }
 
 
@@ -1091,7 +1163,26 @@ def kernels_line(cases, launches):
     return out
 
 
-def main():
+def scan_only(argv):
+    """``--scan-only [SERVED]``: build, time the scan cases and, given the
+    ``serve_zamba2`` JSON line of an earlier run in the file SERVED, the
+    scan over that run's served prefills.  It uses only the scan wrapper's
+    public call, so a copy of this script placed in an older checkout
+    times that checkout's kernel the same way."""
+    build.load_library()
+    phase_kernels_ssd()
+    if argv:
+        with open(argv[0]) as f:
+            served = json.loads(f.read())["served_prefills"]
+        zcfg = get_config(ZAMBA)
+        ms, per_t = served_scan_ms(served, zcfg.num_layers, zcfg.ssm_nheads,
+                                   zcfg.ssm_headdim, zcfg.ssm_state)
+        emit("scan_served", served_prefills=served, scan_ms_served=ms,
+             scan_ms_by_prefill=per_t)
+    return 0
+
+
+def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
               "is false", file=sys.stderr)
@@ -1105,6 +1196,8 @@ def main():
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          nvidia_smi=smi, allow_tf32=torch.backends.cuda.matmul.allow_tf32)
     assert torch.backends.cuda.matmul.allow_tf32 is False
+    if argv[:1] == ["--scan-only"]:
+        return scan_only(argv[1:])
 
     t0 = time.perf_counter()
     build.load_library()
@@ -1149,4 +1242,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -136,9 +136,11 @@ def _bind(lib: ctypes.CDLL):
         i, i, p]
     lib.ssd_scan.restype = i
     lib.ssd_scan.argtypes = [
-        p, p, p, p, p, p, p,               # xdt dA B C s0 y sfin
-        i, i, i, i, i, i, i,               # b T H G P N L
-        i, p]                              # y dtype, stream
+        p, p, p, p, p, p, p, p,            # x dt A B C s0 y sfin
+        i, i, i, i, i, i,                  # b T H G P N
+        i64, i64, i64, i64, i64, i64, i64,  # strides: x, dt, B/C (batch,
+                                           # token), s0 (batch)
+        i, p]                              # x dtype, stream
 
 
 def load_library() -> ctypes.CDLL:

@@ -134,9 +134,7 @@ def mamba2_block(p, cfg, x, cache=None, *, valid_len=None):
                                        Cmat[:, 0], st)
         y = y[:, None]
     else:
-        chunk = min(cfg.ssm_chunk, T)
-        while T % chunk != 0:
-            chunk //= 2
+        chunk = scan_chunk(cfg, T)
         # dt rounds to the activation type before the scan, as in the
         # reference
         y, new_state = ssd_ops.ssd_scan(xs, dt.to(x.dtype), A, Bmat, Cmat,
@@ -157,6 +155,15 @@ def mamba2_block(p, cfg, x, cache=None, *, valid_len=None):
         cache["conv"].copy_(new_conv)
         cache["ssm"].copy_(new_state)
     return out, cache
+
+
+def scan_chunk(cfg, T: int) -> int:
+    """The scan's chunk for a T-token prefill, as the reference picks it:
+    ``cfg.ssm_chunk`` (or T if shorter), halved until it divides T."""
+    chunk = min(cfg.ssm_chunk, T)
+    while T % chunk != 0:
+        chunk //= 2
+    return chunk
 
 
 def init_mamba2_cache(cfg, batch: int, dtype, device="cuda"):

@@ -25,7 +25,9 @@ from repro_torch.kernels.decode_attention.ops import (
     decode_attention, decode_attention_ref, keys_per_split,
     paged_decode_attention, paged_decode_attention_ref)
 from repro_torch.kernels.paged_args import gather_pool
-from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_ref
+from repro_torch.kernels.ssd_scan.ops import P_ROUND as P_ROUND_SSD
+from repro_torch.kernels.ssd_scan.ops import (ssd_scan, ssd_scan_ref,
+                                              ssd_scan_tiled_ref)
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
 
@@ -326,35 +328,129 @@ def test_dense_prefill_kernel_matches_plain_version(cuda, hq, hkv, d, dtype,
 #: the scan: float32 sums over a chunk in another order (the reference's
 #: kernel tests hold it to the same bound)
 SSD_TOL = 2e-3
+#: the kernel against its own walk (``ssd_scan_tiled_ref`` with the
+#: kernel's rounding): the same operands, float32 sums in another order,
+#: relative to the largest output
+SSD_WALK_RTOL = 1e-5
+#: half a bf16 step of a value v is at most 2^-8 |v|: a bf16 output is the
+#: float32 result rounded once
+BF16_HALF_STEP = 2.0 ** -8
 
 
+def _ssd_case(dev, b, t, h, g, n, dtype):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    x = torch.randn((b, t, h, 64), device=dev, generator=gen)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, t, h), device=dev, generator=gen))
+    A = -torch.exp(torch.randn((h,), device=dev, generator=gen))
+    B = torch.randn((b, t, g, n), device=dev, generator=gen)
+    C = torch.randn((b, t, g, n), device=dev, generator=gen)
+    s0 = 0.1 * torch.randn((b, h, 64, n), device=dev, generator=gen)
+    x, dt, B, C = (a.to(dtype) for a in (x, dt, B, C))
+    return x, dt, A, B, C, s0
+
+
+def _excess(y, ref, dtype):
+    """Largest |y - ref| beyond y's own rounding to ``dtype``."""
+    slack = BF16_HALF_STEP if dtype == torch.bfloat16 else 0.0
+    return ((y.float() - ref).abs() - slack * ref.abs()).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,t,h,g,n,chunk", [
     (2, 256, 4, 1, 16, 64), (1, 512, 6, 2, 64, 256), (1, 430, 3, 1, 128, 215),
-    (2, 96, 4, 1, 32, 96), (1, 300, 2, 1, 64, 4)])
-def test_ssd_scan_kernel_matches_plain_version(cuda, b, t, h, g, n, chunk):
-    gen = torch.Generator(device=cuda)
-    gen.manual_seed(7)
-    x = torch.randn((b, t, h, 64), device=cuda, generator=gen)
-    dt = torch.nn.functional.softplus(
-        torch.randn((b, t, h), device=cuda, generator=gen))
-    A = -torch.exp(torch.randn((h,), device=cuda, generator=gen))
-    B = torch.randn((b, t, g, n), device=cuda, generator=gen)
-    C = torch.randn((b, t, g, n), device=cuda, generator=gen)
-    s0 = 0.1 * torch.randn((b, h, 64, n), device=cuda, generator=gen)
+    (2, 96, 4, 1, 32, 96), (1, 300, 2, 1, 64, 4), (1, 887, 4, 1, 64, 1),
+    (2, 300, 4, 2, 32, 100), (1, 1100, 2, 1, 64, 100)])
+def test_ssd_scan_kernel_matches_plain_version(cuda, b, t, h, g, n, chunk,
+                                               dtype):
+    """Against the float32 plain version on the same values (2e-3 beyond
+    the output's rounding), against the kernel's own walk with its
+    rounding (float32 summation order only), and bit-identical over two
+    calls.  1100 tokens are 18 tiles: two slices, walked a launch each."""
+    x, dt, A, B, C, s0 = _ssd_case(cuda, b, t, h, g, n, dtype)
     before = ssd_scan.launches
     y, s = ssd_scan(x, dt, A, B, C, chunk, s0)
-    y0, _ = ssd_scan(x, dt, A, B, C, chunk)
+    y0, s_0 = ssd_scan(x, dt, A, B, C, chunk)
     torch.cuda.synchronize()
     assert ssd_scan.launches == before + 2
-    ry, rs = ssd_scan_ref(x, dt, A, B, C, chunk, s0)
-    ry0, _ = ssd_scan_ref(x, dt, A, B, C, chunk)
-    assert y.dtype == torch.float32 and s.dtype == torch.float32
-    assert (y - ry).abs().max().item() <= SSD_TOL
+    assert y.dtype == dtype and s.dtype == torch.float32
+    f32 = [a.float() for a in (x, dt, A, B, C)]
+    ry, rs = ssd_scan_ref(*f32, chunk, s0)
+    ry0, rs0 = ssd_scan_ref(*f32, chunk)
+    assert _excess(y, ry, dtype) <= SSD_TOL
     assert (s - rs).abs().max().item() <= SSD_TOL
-    assert (y0 - ry0).abs().max().item() <= SSD_TOL
-    yb, _ = ssd_scan(x.bfloat16(), dt.bfloat16(), A, B.bfloat16(),
-                     C.bfloat16(), chunk, s0)
-    assert yb.dtype == torch.bfloat16
+    assert _excess(y0, ry0, dtype) <= SSD_TOL
+    assert (s_0 - rs0).abs().max().item() <= SSD_TOL
+    wy, ws = ssd_scan_tiled_ref(*f32, s0, p_round=P_ROUND_SSD[dtype])
+    tight = SSD_WALK_RTOL * max(wy.abs().max().item(), 1.0)
+    assert _excess(y, wy, dtype) <= tight
+    assert (s - ws).abs().max().item() <= \
+        SSD_WALK_RTOL * max(ws.abs().max().item(), 1.0)
+    y2, s2 = ssd_scan(x, dt, A, B, C, chunk, s0)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+def test_ssd_scan_time_does_not_follow_the_chunk(cuda):
+    """The kernel walks tiles of its own: chunk 1 and chunk 256 of one
+    input launch the same work and give the same bits."""
+    x, dt, A, B, C, s0 = _ssd_case(cuda, 1, 1024, 4, 1, 64, torch.bfloat16)
+    y1, s1 = ssd_scan(x, dt, A, B, C, 1, s0)
+    y256, s256 = ssd_scan(x, dt, A, B, C, 256, s0)
+    assert torch.equal(y1, y256) and torch.equal(s1, s256)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [1024, 1025, 2111])
+def test_ssd_scan_walks_long_prefills_in_slices(cuda, t, dtype):
+    """A launch walks at most 16 tiles (1024 tokens): 1025 tokens take a
+    second launch for one token, 2111 three, the last ragged; each slice
+    enters with the state the one before left, and the whole meets the
+    kernel's walk as one."""
+    x, dt, A, B, C, s0 = _ssd_case(cuda, 1, t, 2, 1, 64, dtype)
+    f32 = [a.float() for a in (x, dt, A, B, C)]
+    wy, ws = ssd_scan_tiled_ref(*f32, s0, p_round=P_ROUND_SSD[dtype])
+    y, s = ssd_scan(x, dt, A, B, C, 1, s0)
+    torch.cuda.synchronize()
+    assert _excess(y, wy, dtype) <= \
+        SSD_WALK_RTOL * max(wy.abs().max().item(), 1.0)
+    assert (s - ws).abs().max().item() <= \
+        SSD_WALK_RTOL * max(ws.abs().max().item(), 1.0)
+
+
+def test_ssd_scan_reads_strided_inputs_in_place(cuda):
+    """x, B and C as the model passes them: views into one [b, t, channels]
+    buffer, with a token stride wider than a row."""
+    b, t, h, g, n = 2, 150, 4, 1, 64
+    x, dt, A, B, C, s0 = _ssd_case(cuda, b, t, h, g, n, torch.bfloat16)
+    buf = torch.cat([x.reshape(b, t, h * 64), B.reshape(b, t, g * n),
+                     C.reshape(b, t, g * n)], dim=-1)
+    xs, Bs, Cs = torch.split(buf, [h * 64, g * n, g * n], dim=-1)
+    xs, Bs, Cs = (xs.reshape(b, t, h, 64), Bs.reshape(b, t, g, n),
+                  Cs.reshape(b, t, g, n))
+    assert not xs.is_contiguous()
+    y, s = ssd_scan(xs, dt, A, Bs, Cs, 10, s0)
+    ry, rs = ssd_scan(x, dt, A, B, C, 10, s0)
+    assert torch.equal(y, ry) and torch.equal(s, rs)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16],
+                         ids=["x_f32", "x_bf16"])
+def test_ssd_scan_takes_inputs_in_mixed_types(cuda, x_dtype):
+    """dt, B or C in another type than x: the kernel runs on float32 copies
+    of all four, as the plain version computes, and y comes in x's type."""
+    x, dt, A, B, C, s0 = _ssd_case(cuda, 1, 200, 4, 1, 64, torch.float32)
+    x = x.to(x_dtype)
+    other = torch.bfloat16 if x_dtype == torch.float32 else torch.float32
+    for dt_m, B_m, C_m in [(dt.to(other), B, C),
+                           (dt, B.to(other), C.to(other))]:
+        y, s = ssd_scan(x, dt_m, A, B_m, C_m, 8, s0)
+        ry, rs = ssd_scan(x.float(), dt_m.float(), A, B_m.float(),
+                          C_m.float(), 8, s0)
+        assert y.dtype == x_dtype
+        assert torch.equal(y, ry.to(x_dtype)) and torch.equal(s, rs)
 
 
 def test_dense_and_scan_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
