@@ -21,11 +21,20 @@ printing one JSON line; any failure raises and the process exits non-zero
   params, model  qwen2.5-3b at full width: a mixed and a decode
                  ``forward`` through the kernels against the same through
                  the plain versions
-  serve          the paged main path: ``build_cluster`` under
-                 ``TaiChiPolicy`` with one P-heavy and one D-heavy
+  serve          the paged path as a batch replay: ``build_cluster``
+                 under ``TaiChiPolicy`` with one P-heavy and one D-heavy
                  ``TorchExecutor`` instance serving 32 seeded requests at
                  the full width of qwen2.5-3b (random weights from a
-                 seed), with flowing-decode migrations
+                 seed), with flowing-decode migrations; every decode-only
+                 iteration replays a captured CUDA graph
+  live           the main path, ``--engine live``: the online
+                 ``ServingLoop`` paced by a ``WallClock`` over a
+                 non-blocking cluster with decode horizons up to K = 8,
+                 the same 32 requests arriving at 8 a second; TTFT / TPOT
+                 percentiles, horizons, readbacks, graphs, launches
+  graphs_paged   one paged horizon bucket (4 rows, K = 8) at full width:
+                 its graph's replay against the step run without a graph
+                 from the same pool, tokens and KV bit for bit
   kernels_dense  the dense decode and dense chunked-prefill kernels
                  against their plain versions, at smollm-135m's and
                  zamba2-7b's attention shapes (zamba2-7b's in bf16 and
@@ -45,6 +54,8 @@ printing one JSON line; any failure raises and the process exits non-zero
                  first token held against a replay of its prefill chunks;
                  the served (T, chunk) histogram of the scan and its
                  kernel time over those prefills (``scan_ms_served``)
+  graphs_dense   zamba2-7b's full-slot-batch decode graph against the
+                 step run without it, tokens, KV and recurrent state
 
 ``python3 chip_smoke.py --scan-only [SERVED]`` runs only the build and
 ``kernels_ssd`` and, given a file holding an earlier run's
@@ -75,10 +86,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.estimator import CostModel  # noqa: E402
+from repro_torch.core.hw import InstanceSpec  # noqa: E402
+from repro_torch.core.instance import D_HEAVY, Instance  # noqa: E402
 from repro_torch.core.latency import SLO  # noqa: E402
 from repro_torch.core.policies import Sliders  # noqa: E402
-from repro_torch.engine.batching import bucket_batch  # noqa: E402
+from repro_torch.engine.batching import bucket_batch, pack_decode  # noqa: E402
 from repro_torch.engine.engine import PendingStep, TorchExecutor  # noqa: E402
+from repro_torch.engine.request import Request  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.chunked_prefill_attention import ops as pf_ops  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
@@ -87,6 +102,7 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import mamba2 as m2  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.serving import ServingLoop, WallClock  # noqa: E402
 from repro_torch.sim.simulator import ServingConfig, build_cluster  # noqa: E402
 from repro_torch.sim.workload import LengthDist, WorkloadSpec  # noqa: E402
 
@@ -493,8 +509,11 @@ def phase_model(cfg, params):
 # ---------------------------------------------------------------------------
 
 class TimedExecutor(TorchExecutor):
-    """TorchExecutor that also logs, for every iteration, what ran and how
-    long dispatch and dispatch + readback took on the host clock."""
+    """TorchExecutor that also logs, for every iteration, what ran, its
+    decode steps (the horizon K of a decode-only iteration, else 1),
+    whether it replayed a captured graph, how long dispatch and dispatch +
+    readback took on the host clock, and the device milliseconds between
+    two CUDA events around the dispatch."""
 
     def __init__(self, *a, log, **kw):
         super().__init__(*a, **kw)
@@ -506,25 +525,71 @@ class TimedExecutor(TorchExecutor):
         rids = [req.rid for req, _ in plan.prefill_items]
         ctxs = [int(self.positions[self.slots.slot(r.rid)])
                 for r in plan.decode_reqs]
+        steps = 1 if rows else getattr(plan, "horizon", 1)
+        captures, replays = self.graphs.captures, self.graphs.replays
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
+        ev0.record()
         step = super().step_async(plan)
+        ev1.record()
         t1 = time.perf_counter()
         if not isinstance(step, PendingStep):
             return step
         inner = step.resolve
+        replayed = self.graphs.replays > replays
+        captured = self.graphs.captures > captures
 
         def resolve():
             first = not step.resolved
             eos = inner()
             if first:
                 self.log.append({"prefill": rows, "prefill_rids": rids,
-                                 "decode": ctxs,
+                                 "decode": ctxs, "steps": steps,
+                                 "replayed": replayed, "captured": captured,
                                  "dispatch_s": t1 - t0,
-                                 "total_s": time.perf_counter() - t0})
+                                 "total_s": time.perf_counter() - t0,
+                                 "device_ms": ev0.elapsed_time(ev1)})
             return eos
 
         step.resolve = resolve
         return step
+
+
+def graph_stats(executors, log):
+    """What the executors' CUDA graphs did in a run, and the decode-only
+    iterations split into replays and first uses (eager run + capture):
+    host ms of dispatch + readback, and device ms a decode step (between
+    the events around the dispatch, over the iteration's steps)."""
+    dec = [e for e in log if not e["prefill"]]
+
+    def ms(entries, key, per_step=False):
+        xs = [1e3 * e[key] if key.endswith("_s") else e[key]
+              for e in entries]
+        if per_step:
+            xs = [x / e["steps"] for x, e in zip(xs, entries)]
+        return ({"mean": float(np.mean(xs)), "p50": float(np.median(xs)),
+                 "min": float(np.min(xs)), "max": float(np.max(xs)),
+                 "n": len(xs)} if xs else None)
+
+    replays = [e for e in dec if e["replayed"]]
+    firsts = [e for e in dec if e["captured"]]
+    by_k = collections.defaultdict(list)
+    for e in replays:
+        by_k[e["steps"]].append(e)
+    return {"graphs": sum(len(ex.graphs) for ex in executors),
+            "captures": sum(ex.graphs.captures for ex in executors),
+            "capture_s": sum(ex.graphs.capture_seconds for ex in executors),
+            "replays": sum(ex.graphs.replays for ex in executors),
+            "decode_only_replay_total_ms": ms(replays, "total_s"),
+            "decode_only_replay_dispatch_ms": ms(replays, "dispatch_s"),
+            "decode_only_first_use_total_ms": ms(firsts, "total_s"),
+            "replay_device_ms_a_step_by_k": {
+                k: ms(v, "device_ms", per_step=True)
+                for k, v in sorted(by_k.items())},
+            "replay_total_ms_a_step_by_k": {
+                k: ms(v, "total_s", per_step=True)
+                for k, v in sorted(by_k.items())}}
 
 
 def derive_derates(log, cost):
@@ -634,11 +699,7 @@ def phase_serve(cfg, params):
     slo = SLO(ttft=5.0, tpot=0.2)
     cluster = build_cluster(sc, slo, seed=0, executor_factory=factory)
     cluster._on_exec_error = raise_exec_error
-    wl = WorkloadSpec("smoke",
-                      LengthDist(mu=6.5, sigma=0.8, lo=128, hi=2048),
-                      LengthDist(mu=4.0, sigma=0.6, lo=16, hi=128),
-                      tokenized=True, vocab_size=cfg.vocab_size)
-    reqs = wl.sample_requests(32, qps=8.0, seed=0)
+    reqs = serve_workload(cfg)
     executors = [inst.executor for inst in cluster.policy.instances]
     pool_bytes = sum(ex.cache_bytes() for ex in executors)
 
@@ -661,6 +722,10 @@ def phase_serve(cfg, params):
     assert launches["paged_decode_attention"] \
         + launches["paged_chunked_prefill_attention"] \
         == readbacks * cfg.num_layers
+    # every decode-only iteration replays a graph, or captures one at its
+    # bucket's first use; no other iteration does either
+    assert all((e["replayed"] or e["captured"]) == (not e["prefill"])
+               for e in log)
     for ex in executors:
         ex.kv.check_invariants()
     out_tokens = sum(len(r.output_tokens) for r in reqs)
@@ -675,8 +740,238 @@ def phase_serve(cfg, params):
          transfers=cluster.transfer_count, launches=launches,
          kv_pool_bytes=pool_bytes,
          peak_memory_bytes=torch.cuda.max_memory_allocated(),
-         measured=derates)
+         graphs=graph_stats(executors, log), measured=derates)
     return launches
+
+
+def serve_workload(cfg):
+    """The 32 seeded requests of ``serve`` (and ``live``), at 8 a second."""
+    wl = WorkloadSpec("smoke",
+                      LengthDist(mu=6.5, sigma=0.8, lo=128, hi=2048),
+                      LengthDist(mu=4.0, sigma=0.6, lo=16, hi=128),
+                      tokenized=True, vocab_size=cfg.vocab_size)
+    return wl.sample_requests(32, qps=8.0, seed=0)
+
+
+def pct(xs, q):
+    return float(np.percentile(xs, q)) if xs else None
+
+
+def phase_live(cfg, params, name="live", executors=None):
+    """The reference's main path, ``--engine live``: the online
+    ``ServingLoop`` paced by a ``WallClock`` over a non-blocking cluster
+    (one P-heavy and one D-heavy instance) with decode horizons up to K =
+    8, greedy, serving ``serve``'s 32 requests as they arrive.  Reports
+    the loop's own TTFT / TPOT (on the estimator's clock, which the
+    pacing follows) beside the wall-clock ones the token sink saw, and
+    the device ms a decode step inside the replayed horizons.
+
+    Given the ``executors`` of an earlier run (idle, their graphs
+    captured), the cluster is built over them: the run then replays
+    from its first horizon on.  Returns (launches, executors)."""
+    log = []
+    sc = ServingConfig(model=MODEL, tp=1, policy="taichi",
+                       sliders=Sliders(n_p=1, n_d=1, s_p=1024, s_d=256),
+                       hbm_blocks=8192, block_size=BLOCK)
+    if executors is None:
+        factory = lambda: TimedExecutor(cfg, params, n_slots=32,
+                                        max_seq=4096, hbm_blocks=8192,
+                                        device=DEV, log=log)
+    else:
+        for ex in executors:
+            ex.log = log
+        factory = iter(executors).__next__
+    slo = SLO(ttft=5.0, tpot=0.2)
+    cluster = build_cluster(sc, slo, seed=0, executor_factory=factory,
+                            async_exec=True)
+    cluster.set_horizon(8)
+    cluster._on_exec_error = raise_exec_error
+    reqs = serve_workload(cfg)
+    executors = [inst.executor for inst in cluster.instances]
+    before = {k: sum(getattr(ex, k) for ex in executors)
+              for k in ("host_readbacks", "host_syncs", "horizon_calls",
+                        "horizon_tokens")}
+    captures = {id(ex): (ex.graphs.captures, ex.graphs.capture_seconds)
+                for ex in executors}
+    walls = collections.defaultdict(list)
+    streamed = {"tokens": 0}
+
+    def sink(req, t, tok):
+        streamed["tokens"] += 1
+        walls[req.rid].append(clock.now)
+
+    # counts to 0 just before the main path, read just after
+    reset_counts(PAGED_KERNELS)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    clock = WallClock()
+    loop = ServingLoop(cluster, slo, arrivals=iter(reqs), on_token=sink,
+                       clock=clock, pace=True)
+    t0 = time.perf_counter()
+    loop.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(PAGED_KERNELS)
+
+    real = sum(len(r.output_tokens) for r in reqs)
+    assert streamed["tokens"] == real, (streamed, real)
+    for r in reqs:
+        assert r.state.value == "finished", (r.rid, r.state)
+        assert len(r.output_tokens) == r.target_output_len
+    assert cluster.exec_errors == 0, cluster.last_exec_error
+    assert all(n > 0 for n in launches.values()), launches
+    hist = collections.Counter()
+    for inst in cluster.instances:
+        hist.update(inst.horizon_hist)
+    assert max(hist) >= 2, f"no horizon of K >= 2 was planned: {hist}"
+    got = {k: sum(getattr(ex, k) for ex in executors) - n
+           for k, n in before.items()}
+    assert len(log) == got["host_readbacks"]
+    assert launches["paged_decode_attention"] \
+        + launches["paged_chunked_prefill_attention"] \
+        == sum(e["steps"] for e in log) * cfg.num_layers
+    assert all((e["replayed"] or e["captured"]) == (not e["prefill"])
+               for e in log)
+    for ex in executors:
+        ex.kv.check_invariants()
+    ttft = [walls[r.rid][0] - r.arrival for r in reqs]
+    tpot = [(walls[r.rid][-1] - walls[r.rid][0]) / (len(walls[r.rid]) - 1)
+            for r in reqs if len(walls[r.rid]) > 1]
+    loop_tpot = [r.tpot() for r in reqs if r.tpot() is not None]
+    stats = graph_stats(executors, log)
+    stats["captures_this_run"] = sum(
+        ex.graphs.captures - captures[id(ex)][0] for ex in executors)
+    stats["capture_s_this_run"] = sum(
+        ex.graphs.capture_seconds - captures[id(ex)][1] for ex in executors)
+    emit(name, model=cfg.name, policy="taichi", requests=len(reqs),
+         horizon=8, async_exec=True, pace="WallClock",
+         output_tokens=real, streamed_tokens=streamed["tokens"],
+         wall_s=wall, output_tokens_per_s=real / wall,
+         wall_ttft_s={"p50": pct(ttft, 50), "p90": pct(ttft, 90)},
+         wall_tpot_s={"p50": pct(tpot, 50), "p90": pct(tpot, 90)},
+         loop_ttft_s={"p50": pct([r.ttft() for r in reqs], 50),
+                      "p90": pct([r.ttft() for r in reqs], 90)},
+         loop_tpot_s={"p50": pct(loop_tpot, 50), "p90": pct(loop_tpot, 90)},
+         slo={"ttft_s": slo.ttft, "tpot_s": slo.tpot},
+         wall_slo_attainment=sum(
+             a <= slo.ttft and b <= slo.tpot
+             for a, b in zip(ttft, tpot)) / len(reqs),
+         loop_summary=loop.stats(8.0).summary(),
+         horizon_hist=dict(sorted(hist.items())), **got,
+         tokens_a_readback=real / got["host_readbacks"],
+         transfers=cluster.transfer_count, launches=launches,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         graphs=stats)
+    return launches, executors
+
+
+# ---------------------------------------------------------------------------
+# captured steps against the same steps run without a graph
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def captured_vs_uncaptured(ex, key, fn, host):
+    """Capture ``fn`` for ``key`` (its first use runs it eagerly), then
+    from one copy of the cache replay the graph and run ``fn`` without
+    one, on the same host inputs; compare the tokens and every cache
+    entry (KV, and recurrent state on the dense path) the two wrote."""
+    cache = ex.kv.pool if ex.paged else ex.cache
+    saved = {n: t.clone() for n, t in cache.items()}
+
+    def restore():
+        for n, t in saved.items():
+            cache[n].copy_(t)
+    ex._dispatch(key, fn, *host)
+    assert key in ex.graphs.graphs, key
+    restore()
+    replayed = [t.clone() for t in ex._dispatch(key, fn, *host)]
+    after = {n: t.clone() for n, t in cache.items()}
+    restore()
+    plain = fn(*(torch.from_numpy(np.array(a)).to(DEV) for a in host))
+    torch.cuda.synchronize()
+    out = {"key": list(key),
+           "tokens_equal": all(torch.equal(a, b)
+                               for a, b in zip(replayed, plain)),
+           "cache_equal": {n: torch.equal(after[n], cache[n])
+                           for n in cache}}
+    if not out["tokens_equal"]:
+        out["tokens_differing"] = sum(int((a != b).sum())
+                                      for a, b in zip(replayed, plain))
+    for n in cache:
+        if not out["cache_equal"][n]:
+            out.setdefault("cache_max_abs_diff", {})[n] = (
+                after[n].float() - cache[n].float()).abs().max().item()
+    del saved, after
+    return out
+
+
+def decoding_executor(cfg, params, n_slots, max_seq, lengths, chunk,
+                      **kw):
+    """A fresh executor at full width whose requests (seeded prompts of
+    ``lengths``) have prefilled and entered decode."""
+    ex = TorchExecutor(cfg, params, n_slots=n_slots, max_seq=max_seq,
+                       device=DEV, **kw)
+    inst = Instance(0, D_HEAVY, chunk, CostModel(cfg, InstanceSpec(tp=1)),
+                    ex, hbm_blocks=kw.get("hbm_blocks") or 4096)
+    rng = np.random.default_rng(31)
+    reqs = [Request(prompt_len=n, max_new_tokens=64, hidden_output_len=64,
+                    prompt_tokens=[int(x) for x in rng.integers(
+                        1, cfg.vocab_size, size=n)]) for n in lengths]
+    for r in reqs:
+        inst.enqueue_prefill(r)
+    now = 0.0
+    while any(r.output_len == 0 for r in reqs):
+        dur, done, _ = inst.run_iteration(now)
+        now += dur
+        for r in done:
+            inst.admit_decode(r)
+    return ex, reqs
+
+
+def check_paged_graph(cfg, params, K=8):
+    """One paged horizon bucket at full width (4 rows, K = 8)."""
+    ex, reqs = decoding_executor(cfg, params, 8, 4096, [300, 517, 1024, 77],
+                                 2048, hbm_blocks=1024)
+    slots = [ex.slots.slot(r.rid) for r in reqs]
+    for r, sl in zip(reqs, slots):
+        ex.kv.grow_for(sl, r.rid, int(ex.positions[sl]) + K, False)
+    pk = pack_decode([int(ex.last_token[sl]) for sl in slots],
+                     [int(ex.positions[sl]) for sl in slots],
+                     [K] * len(slots), [ex.kv.tables[sl] for sl in slots],
+                     ex.kv.max_blocks, ex.cache_block_size)
+    key = ("paged",) + pk.tables.shape + (K,)
+    out = captured_vs_uncaptured(
+        ex, key, lambda *a: (ex._horizon_paged(*a, K=K),),
+        (pk.tokens, pk.start, pk.budget, pk.tables))
+    del ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_dense_graph(cfg, params):
+    """zamba2-7b's full-slot-batch dense decode graph (4 slots, one of
+    them idle)."""
+    ex, reqs = decoding_executor(cfg, params, 4, DENSE_S, [300, 700, 129],
+                                 1024)
+    active = ex._decode_mask(reqs)
+    out = captured_vs_uncaptured(
+        ex, ("dense", 1), lambda *a: (ex._decode_fused(*a),),
+        (ex.last_token[:, None], ex.positions, active))
+    del ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_graphs(name, check, *args):
+    """Run a captured-against-uncaptured check: any difference is printed
+    before the phase fails (the two are the same launches on the same
+    inputs, and expected bit-equal)."""
+    out = check(*args)
+    emit(name, **out)
+    assert out["tokens_equal"] and all(out["cache_equal"].values()), out
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1103,7 +1398,7 @@ def phase_serve_zamba2(cfg, params, n_requests=16):
          host_syncs=sum(ex.host_syncs for ex in executors),
          transfers=cluster.transfer_count, launches=launches,
          exec_errors=cluster.exec_errors, cache_bytes=cache_bytes,
-         peak_memory_bytes=peak,
+         peak_memory_bytes=peak, graphs=graph_stats(executors, log),
          first_token_agrees_with_cache_free=(
              f"{agree['cache_free']}/{len(reqs)}"),
          first_token_equals_replay=f"{agree['replay']}/{len(reqs)}",
@@ -1214,7 +1509,17 @@ def main(argv):
     emit("params", model=cfg.name, parameters=count_params(params),
          seconds=time.perf_counter() - t0)
     phase_model(cfg, params)
-    launches = phase_serve(cfg, params)
+    phase_serve(cfg, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, executors = phase_live(cfg, params)
+    # the same executors again: every horizon bucket of the run is
+    # captured, so this run shows the steady state
+    phase_live(cfg, params, "live_warm", executors)
+    del executors
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_graphs("graphs_paged", check_paged_graph, cfg, params)
     # qwen2.5-3b's weights and pools go before zamba2-7b loads
     del params
     gc.collect()
@@ -1231,6 +1536,9 @@ def main(argv):
          device_bytes=torch.cuda.memory_allocated(),
          seconds=time.perf_counter() - t0)
     launches.update(phase_serve_zamba2(zcfg, zparams))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_graphs("graphs_dense", check_dense_graph, zcfg, zparams)
 
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels_line(cases, launches)}), flush=True)

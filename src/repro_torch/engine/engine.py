@@ -34,15 +34,32 @@ A dense executor bounds admission by its rows: its ``allocator`` (a
 :class:`DenseRowAllocator`) grants at most one request a row, and a
 migrated row lands when that admission happens.
 
-Not in the port yet, each raising where it would be reached: the K-step
-decode horizon (``horizon_capable`` is False, so an ``Instance`` plans
-``horizon == 1`` only), prefix-block export/import for replication and
-checkpoints, and the binding of the host spill tier.
+Two serving-loop-facing mechanisms sit on top of the three paths, as in
+the reference:
 
-``step_async`` dispatches the step and returns a :class:`PendingStep`
-at once (CUDA launches are asynchronous); the single blocking readback
-of the token ids happens at ``resolve()``.  ``execute`` is the
-synchronous wrapper (``step_async(plan).resolve()``).
+* **multi-step decode horizon** — a decode-only iteration whose plan
+  carries ``horizon == K > 1`` runs K decode steps in one dispatch (paged
+  and packed-dense paths, ``horizon_capable``): sampling stays on the
+  device between steps, per-row done-masks freeze rows that emit EOS or
+  exhaust their per-row budget (their KV writes drop via ``valid_len``),
+  and block tables are pre-grown to the end-of-horizon frontier.  One
+  readback then retires up to ``K x B`` tokens.
+* **non-blocking ``step_async``** — every path enqueues its device work
+  and returns a :class:`PendingStep` at once (CUDA launches are
+  asynchronous); the single blocking readback happens at ``resolve()``.
+  ``execute`` is the synchronous wrapper (``step_async(plan).resolve()``).
+
+On the card every decode-only step — the paged horizon for any K (a K = 1
+decode-only iteration of the paged path is a one-step horizon), the
+packed-dense horizon and the full-slot-batch dense decode — is replayed
+from a CUDA graph captured at its bucket's first use
+(``repro_torch.engine.graphs``), the counterpart of the reference's
+``jax.jit``.  Mixed and prefill steps run eagerly.  On the CPU the same
+step functions run directly.
+
+Not in the port yet, each raising where it would be reached: prefix-block
+export/import for replication and checkpoints, and the binding of the
+host spill tier.
 """
 from __future__ import annotations
 
@@ -54,14 +71,13 @@ import torch
 from repro_torch.cache.prefix_cache import PrefixCache
 from repro_torch.cache.prefix_tree import PrefixTree
 from repro_torch.engine import batching, migrate
+from repro_torch.engine.graphs import StepGraphs
 from repro_torch.engine.kvcache import BlockAllocator, OutOfBlocks, SlotTable
 from repro_torch.engine.paged import PagedKVCache
 from repro_torch.engine.request import Request
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ATTN, ModelConfig
 
-_LATER_HORIZON = ("the K-step decode horizon is not in the port yet: it "
-                  "comes with the slice that ports the online serving loop")
 _LATER_SPILL = ("binding the host spill tier to the pool is not in the "
                 "port yet: it comes with the slice that ports prefix-block "
                 "export/import")
@@ -167,6 +183,13 @@ def _prefill_window(req: Request, start: int, take: int):
     return stream[pos:pos + take], pos
 
 
+def _budgets(plan):
+    """Per-row token budgets of a decode plan (one each when the plan
+    carries none)."""
+    return (getattr(plan, "decode_budgets", None)
+            or [1] * len(plan.decode_reqs))
+
+
 def packable(cfg: ModelConfig) -> bool:
     """True if T-padded packed prefill is token-exact for this config:
     every layer is full-cache global attention (padding KV writes are
@@ -209,10 +232,6 @@ class TorchExecutor:
     #: decode-growth headroom (tokens) reserved beyond the known context
     #: at admission — mirrors Instance._admit_prefill
     HEADROOM = 64
-
-    #: no fused multi-step decode in this slice: an Instance must plan
-    #: ``horizon == 1`` iterations only
-    horizon_capable = False
 
     def __init__(self, cfg: ModelConfig, params, n_slots: int, max_seq: int,
                  eos_id: Optional[int] = None, greedy: bool = True,
@@ -273,6 +292,13 @@ class TorchExecutor:
         self._pending: Optional[PendingStep] = None
         self.host_readbacks = 0
         self.host_syncs = 0
+        self.horizon_calls = 0
+        self.horizon_tokens = 0
+        # decode-only steps replay as CUDA graphs on the card; the
+        # sampling generator is registered with every graph
+        self.graphs = (StepGraphs(self.device,
+                                  () if greedy else (self._gen,))
+                       if self.device.type == "cuda" else None)
         self.kv_quant = kv_quant if self.paged else None
         self.kv: Optional[PagedKVCache] = None
         self.cache = None
@@ -326,8 +352,20 @@ class TorchExecutor:
         if self.greedy:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         probs = torch.softmax(logits.float() / self.temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=self._gen)[:, 0] \
-            .to(torch.int32)
+        # one draw of index i with probability p_i: argmax of p / E with
+        # E ~ Exp(1) (torch.multinomial's method for one sample, without
+        # its host-side check of the probabilities, which a graph cannot
+        # hold)
+        race = torch.empty_like(probs).exponential_(generator=self._gen)
+        return torch.argmax(probs / race, dim=-1).to(torch.int32)
+
+    def _dispatch(self, key, fn, *host_arrays):
+        """Run the decode-only step ``fn`` (device tensors in, a tuple of
+        device tensors out) on the host arrays: on the card as a replay
+        of the graph captured for ``key``, on the CPU directly."""
+        if self.graphs is None:
+            return fn(*(self._to_dev(a) for a in host_arrays))
+        return self.graphs.run(key, fn, host_arrays)
 
     def _last_logits(self, hidden, valid):
         """``lm_head`` on the last valid hidden state of every row."""
@@ -359,6 +397,54 @@ class TorchExecutor:
         Returns the token ids [n_slots] on the device."""
         logits = self._decode(tokens, pos, active)
         return self._sample_on_device(logits)
+
+    def _horizon_steps(self, forward, tok0, pos0, budget, K: int):
+        """K decode steps with on-device sampling: ``forward(last, pos,
+        step)`` gives one step's logits [B, V] for the tokens ``last`` at
+        positions ``pos``, writing KV (and advancing recurrent state) only
+        for rows with ``step == 1``.  A row is active while it has not
+        emitted EOS and has budget left; a frozen row's token and
+        position hold still, so the final carries are exact per-row
+        states.  Returns one int32 tensor [K + 4, B]: the K steps' tokens,
+        then tokens emitted, last token, position and done (one
+        readback)."""
+        last, pos = tok0, pos0
+        emitted = torch.zeros_like(pos0)
+        done = torch.zeros_like(pos0, dtype=torch.bool)
+        toks = []
+        for _ in range(K):
+            active = (~done) & (emitted < budget)
+            step = active.to(torch.int32)
+            tok = self._sample_on_device(forward(last, pos, step))
+            tok = torch.where(active, tok, last)
+            if self.eos_id is not None:
+                done = done | (active & (tok == self.eos_id))
+            last, pos, emitted = tok, pos + step, emitted + step
+            toks.append(tok)
+        return torch.cat([torch.stack(toks), emitted[None], last[None],
+                          pos[None], done[None].to(torch.int32)])
+
+    @torch.no_grad()
+    def _horizon_paged(self, tok0, pos0, budget, tables, K: int):
+        """K fused decode steps over the block pool (updated in place);
+        positions clamp to ``max_seq - 1`` as in the mixed step."""
+        def forward(last, pos, step):
+            p = torch.clamp(pos, max=self.max_seq - 1)
+            hidden, _, _ = tf.forward(
+                self.params, self.cfg, last[:, None], p[:, None],
+                self.kv.pool, compute_logits=False, valid_len=step,
+                block_tables=(tables, self.cache_block_size))
+            return hidden[:, 0] @ self.params["lm_head"]
+        return self._horizon_steps(forward, tok0, pos0, budget, K)
+
+    @torch.no_grad()
+    def _horizon_dense(self, tok0, pos0, budget, K: int):
+        """K fused decode steps over the full slot batch of the dense cache:
+        slots with budget 0 (unscheduled) never write.  Positions are not
+        clamped, as in the reference."""
+        def forward(last, pos, step):
+            return self._decode(last[:, None], pos, step)
+        return self._horizon_steps(forward, tok0, pos0, budget, K)
 
     @torch.no_grad()
     def _prefill_packed(self, tokens, start, valid, slots, n_real: int):
@@ -415,6 +501,14 @@ class TorchExecutor:
     # unified bookkeeping surface
     # ------------------------------------------------------------------
     @property
+    def horizon_capable(self) -> bool:
+        """True when this executor can fuse K>1 decode steps: the paged
+        pool and the packed dense path freeze rows via ``valid_len``,
+        which needs full-cache attention everywhere (the same gate as
+        T-padded packing); other families stay at K=1."""
+        return self.paged or self.packed
+
+    @property
     def allocator(self):
         """The allocator an Instance adopts so admission and the tensors
         share one source of truth: the block allocator whose ids index
@@ -436,7 +530,11 @@ class TorchExecutor:
             raise NotImplementedError(_LATER_SPILL)
         self.prefix_cache_obj = pc
         self.prefix_cache_enabled = True
+        pool = self.kv.pool
         self.kv.rebind_allocator(pc.allocator)
+        if self.graphs is not None and self.kv.pool is not pool:
+            # the pool was rebuilt: graphs holding the old one are stale
+            self.graphs.clear()
         self._external_bookkeeping = True
         return True
 
@@ -647,8 +745,6 @@ class TorchExecutor:
             raise RuntimeError(
                 "step_async: previous step not resolved — the pipeline "
                 "must be flushed (commit the in-flight iteration) first")
-        if getattr(plan, "horizon", 1) > 1:
-            raise NotImplementedError(_LATER_HORIZON)
         if self.paged:
             step = self._step_paged(plan)
         elif self.batched:
@@ -695,9 +791,12 @@ class TorchExecutor:
         every decode step — as ONE fused step over the block pool.
         Decode rows ride along as length-1 chunks (token = last sampled
         token, start = row position); per-row valid lengths and block
-        tables make the geometry uniform.  A decode-only iteration stays
-        at T == 1 and runs the paged decode kernel; any other runs the
-        paged chunked-prefill kernel."""
+        tables make the geometry uniform and run the paged chunked-prefill
+        kernel.  A decode-only iteration takes the K-step horizon (K = 1
+        included) and runs the paged decode kernel."""
+        if not plan.prefill_items and plan.decode_reqs:
+            return self._step_horizon_paged(plan,
+                                            getattr(plan, "horizon", 1))
         rows = []   # (req, slot, start, chunk, completes, is_decode)
         if plan.prefill_items:
             for req, start, take, completes in plan.prefill_rows():
@@ -760,6 +859,65 @@ class TorchExecutor:
 
         return PendingStep(self, (toks_dev,), apply, event=event)
 
+    def _step_horizon_paged(self, plan, K: int) -> PendingStep:
+        """K fused decode steps over the block pool: grow every row's
+        table to its end-of-horizon frontier, dispatch once (on the card,
+        a graph replay keyed by the packed ``(B, NB)`` and K), read back
+        once."""
+        rows = []   # (req, slot, pos, budget)
+        for req, b in zip(plan.decode_reqs, _budgets(plan)):
+            slot = self.slots.slot(req.rid)
+            pos = int(self.positions[slot])
+            self.kv.grow_for(slot, req.rid, min(pos + b, self.max_seq),
+                             self._external_bookkeeping)
+            rows.append((req, slot, pos, b))
+        packed = batching.pack_decode(
+            [int(self.last_token[s]) for _, s, _, _ in rows],
+            [p for _, _, p, _ in rows], [b for _, _, _, b in rows],
+            [self.kv.tables[s] for _, s, _, _ in rows],
+            self.kv.max_blocks, self.cache_block_size)
+        B, NB = packed.tables.shape
+        out = self._dispatch(
+            ("paged", B, NB, K),
+            lambda *a: (self._horizon_paged(*a, K=K),),
+            packed.tokens, packed.start, packed.budget, packed.tables)
+        if K == 1:
+            # one step emits one token a row, whatever the device says:
+            # land the advance at dispatch, as the mixed step does
+            for _, slot, _, _ in rows:
+                self.positions[slot] += 1
+        return self._horizon_step(
+            out, K, [(req, slot, i) for i, (req, slot, _, _) in
+                     enumerate(rows)])
+
+    def _horizon_step(self, out, K: int, rows) -> PendingStep:
+        """The pending step of a dispatched K-step horizon whose result
+        ``out[0]`` is ``_horizon_steps``'; ``rows`` are (request, slot,
+        its column of the result).  At resolve only these rows' slots are
+        updated: other slots may have been written host-side (a migration
+        landing) while the step was in flight."""
+        event = self._event()
+        if K > 1:
+            self.horizon_calls += 1
+
+        def apply(arrays, handle) -> Dict[int, bool]:
+            res = arrays[0]
+            emitted, last, pos, done = res[K:K + 4]
+            eos: Dict[int, bool] = {}
+            for req, slot, c in rows:
+                n = int(emitted[c])
+                handle.emitted[req.rid] = n
+                req.output_tokens.extend(int(t) for t in res[:n, c])
+                self.last_token[slot] = int(last[c])
+                self.positions[slot] = int(pos[c])
+                if K > 1:
+                    self.horizon_tokens += n
+                if done[c]:
+                    eos[req.rid] = True
+            return eos
+
+        return PendingStep(self, out, apply, K, event=event)
+
     # ---- batched dense path ------------------------------------------
     def _decode_mask(self, decode_reqs):
         """[n_slots] int32: 1 for the slots the plan decodes."""
@@ -769,6 +927,10 @@ class TorchExecutor:
         return active
 
     def _step_batched(self, plan) -> PendingStep:
+        K = getattr(plan, "horizon", 1)
+        if K > 1 and self.packed and not plan.prefill_items \
+                and plan.decode_reqs:
+            return self._step_horizon_dense(plan, K)
         arrays: list = []
         appliers: list = []
         if plan.prefill_items:
@@ -782,10 +944,10 @@ class TorchExecutor:
             # above already advanced their rows' positions, and those rows
             # (like every row the plan does not decode) are masked out
             decode_reqs = list(plan.decode_reqs)
-            toks_dev = self._decode_fused(
-                self._to_dev(self.last_token[:, None]),
-                self._to_dev(self.positions),
-                self._to_dev(self._decode_mask(decode_reqs)))
+            toks_dev, = self._dispatch(
+                ("dense", 1), lambda *a: (self._decode_fused(*a),),
+                self.last_token[:, None], self.positions,
+                self._decode_mask(decode_reqs))
             arrays.append(toks_dev)
             for req in decode_reqs:
                 self.positions[self.slots.slot(req.rid)] += 1
@@ -812,6 +974,21 @@ class TorchExecutor:
             return eos
 
         return PendingStep(self, arrays, apply, event=event)
+
+    def _step_horizon_dense(self, plan, K: int) -> PendingStep:
+        """K fused decode steps over the slot-contiguous dense cache: the
+        full slot batch rides along, with per-slot budgets freezing every
+        slot the plan does not decode."""
+        slot_budget = np.zeros(self.n_slots, np.int32)
+        rows = []   # (req, slot, slot)
+        for req, b in zip(plan.decode_reqs, _budgets(plan)):
+            slot = self.slots.slot(req.rid)
+            slot_budget[slot] = b
+            rows.append((req, slot, slot))
+        out = self._dispatch(
+            ("dense", K), lambda *a: (self._horizon_dense(*a, K=K),),
+            self.last_token, self.positions, slot_budget)
+        return self._horizon_step(out, K, rows)
 
     def _dispatch_prefill_packed(self, rows, arrays, appliers):
         windows = [_prefill_window(req, start, take)

@@ -4,24 +4,33 @@ Modes:
   --engine sim    event-driven simulator with estimator timing (default;
                   any registered arch, production scale)
   --engine torch  real PyTorch engine with the hand-written CUDA kernels:
-                  tokens are really computed, batch replay.  Runs on the
-                  card (``--device cuda``, the default) at the registered
-                  width; ``--reduced`` serves the small test variant and
-                  ``--device cpu`` the kernels' plain versions.  All-ATTN
-                  archs take the paged executor path, Mamba2 and hybrid
-                  archs (mamba2-1.3b, zamba2-7b) the batched dense one, as
-                  ``engine.packable`` decides.
+                  tokens are really computed, batch replay
+  --engine live   the ONLINE serving runtime on the real PyTorch engine:
+                  open-loop ingestion, per-token streaming, windowed
+                  telemetry snapshots, K-step decode horizons (``--horizon``,
+                  default 8) over the non-blocking dispatch/commit
+                  pipeline, and (with --controller) live slider adaptation
+                  incl. drain-and-flip role changes
 
-``--engine live`` (the online serving loop) and ``--serve`` (the network
-front end) are not in the port yet and exit saying so.
+Both real-engine modes run on the card (``--device cuda``, the default) at
+the registered width; ``--reduced`` serves the small test variant and
+``--device cpu`` the kernels' plain versions.  All-ATTN archs take the
+paged executor path, Mamba2 and hybrid archs (mamba2-1.3b, zamba2-7b) the
+batched dense one, as ``engine.packable`` decides (and only the former
+fuse decode horizons).
+
+``--serve`` (the network front end) is not in the port yet and exits
+saying so.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
       --policy taichi --np 2 --nd 2 --sp 1024 --sd 256 --qps 80
   PYTHONPATH=src python -m repro_torch.launch.serve --engine torch \\
       --arch qwen2.5-3b --np 1 --nd 1 --qps 4 --n 32
-  PYTHONPATH=src python -m repro_torch.launch.serve --engine torch \\
-      --arch smollm-135m --reduced --device cpu --qps 2 --n 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine live \\
+      --arch qwen2.5-3b --np 1 --nd 1 --qps 8 --n 32 --pace
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine live \\
+      --arch smollm-135m --reduced --device cpu --qps 4 --n 8
   PYTHONPATH=src python -m repro_torch.launch.serve --engine torch \\
       --arch zamba2-7b --reduced --device cpu --qps 2 --n 8 --np 1 --nd 1
 """
@@ -38,14 +47,14 @@ from repro_torch.core.policies import Sliders
 from repro_torch.sim.simulator import ServingConfig, build_cluster, run_sim
 from repro_torch.sim.workload import WORKLOADS, LengthDist, WorkloadSpec
 
-_LATER = ("is not in the PyTorch port yet: the online ServingLoop "
-          "(--engine live) and the HTTP front end (--serve) come with a "
-          "later slice; use --engine sim or --engine torch")
+_LATER_SERVE = ("--serve is not in the PyTorch port yet: the HTTP front "
+                "end comes with a later slice; use --engine live")
 
 
-def _torch_mode(args, slo: SLO):
-    """Batch replay on the real engine: shared random weights from a
-    seed, one TorchExecutor an instance."""
+def _engine_setup(args, slo: SLO, async_exec: bool = False):
+    """The cluster of the real-engine modes: shared random weights from a
+    seed, one TorchExecutor an instance.  Returns (cfg, cluster,
+    workload)."""
     import torch
 
     from repro_torch.engine.engine import TorchExecutor
@@ -77,7 +86,14 @@ def _torch_mode(args, slo: SLO):
     factory = lambda: TorchExecutor(cfg, params, n_slots=args.slots,
                                     max_seq=max_seq, hbm_blocks=blocks,
                                     device=args.device)
-    cluster = build_cluster(sc, slo, executor_factory=factory)
+    cluster = build_cluster(sc, slo, executor_factory=factory,
+                            async_exec=async_exec)
+    return cfg, cluster, wl
+
+
+def _torch_mode(args, slo: SLO):
+    """Batch replay on the real engine."""
+    cfg, cluster, wl = _engine_setup(args, slo)
     reqs = wl.sample_requests(args.n, args.qps, seed=0)
     t0 = time.perf_counter()
     cluster.run(reqs)
@@ -93,7 +109,102 @@ def _torch_mode(args, slo: SLO):
                       "transfers": cluster.transfer_count}, indent=2))
 
 
-def main(argv=None):
+def _trace_config(args):
+    """--trace (or either output path) turns on lifecycle tracing."""
+    if not (args.trace or args.trace_out or args.trace_jsonl):
+        return None
+    from repro_torch.serving import TraceConfig
+    return TraceConfig()
+
+
+def _dump_trace(loop, args, slo: SLO):
+    tr = getattr(loop, "tracer", None)
+    if tr is None:
+        return
+    if args.trace_out:
+        tr.dump_chrome(args.trace_out)
+        print(f"chrome trace -> {args.trace_out} "
+              "(open in ui.perfetto.dev)", flush=True)
+    if args.trace_jsonl:
+        tr.dump_jsonl(args.trace_jsonl)
+        print(f"trace jsonl -> {args.trace_jsonl}", flush=True)
+    print(json.dumps(
+        {"slo_violation_report": tr.violation_report(slo)},
+        indent=2, default=str))
+
+
+def live_loop(args, slo: SLO, on_token=None):
+    """The ``--engine live`` serving loop, built and not yet run, with
+    ``on_token(req, t, tok)`` (if given) called for every streamed token.
+    Returns (cfg, loop, controller or None, streamed) where
+    ``streamed["tokens"]`` counts the tokens the loop has streamed."""
+    from repro_torch.serving import (ControllerConfig, ServingLoop,
+                                     SliderController, WallClock)
+    cfg, cluster, wl = _engine_setup(args, slo, async_exec=not args.no_async)
+    if args.horizon > 1:
+        cluster.set_horizon(args.horizon)
+    ctl = None
+    if args.controller:
+        kw = dict(epoch=args.epoch, cooldown=1)
+        if args.reduced:
+            kw["sd_steps"] = (16, 32, 64)      # the reduced chunk ladder
+        ctl = SliderController(ControllerConfig(**kw))
+    streamed = {"tokens": 0}
+
+    def sink(req, t, tok):
+        streamed["tokens"] += 1
+        if args.stream:
+            print(f"[{t:8.3f}s] req{req.rid} token#{req.output_len} "
+                  f"id={tok}")
+        if on_token is not None:
+            on_token(req, t, tok)
+
+    loop = ServingLoop(
+        cluster, slo,
+        arrivals=wl.iter_requests(args.qps, seed=0, max_new_tokens=32,
+                                  limit=args.n),
+        controller=ctl, window=args.window, on_token=sink,
+        snapshot_every=args.snapshot_every,
+        clock=WallClock() if args.pace else None, pace=args.pace,
+        tracing=_trace_config(args))
+    return cfg, loop, ctl, streamed
+
+
+def _live_mode(args, slo: SLO):
+    """Online runtime on the real engine: tokens stream as they are
+    computed, telemetry snapshots print as JSON lines, and the controller
+    may retune sliders mid-run."""
+    cfg, loop, ctl, streamed = live_loop(args, slo)
+    cluster = loop.cluster
+    t0 = time.perf_counter()
+    loop.run()
+    wall = time.perf_counter() - t0
+    _dump_trace(loop, args, slo)
+    for snap in loop.log.snapshots:
+        print(json.dumps({k: v for k, v in snap.items()
+                          if k != "instances"}))
+    executors = [inst.executor for inst in cluster.instances]
+    st = loop.stats(args.qps)
+    print(json.dumps({**st.summary(),
+                      "policy": args.policy,
+                      "device": args.device,
+                      "model": cfg.name,
+                      "streamed_tokens": streamed["tokens"],
+                      "real_tokens": sum(len(r.output_tokens)
+                                         for r in loop.requests),
+                      "wall_s": round(wall, 3),
+                      "horizon_calls": sum(ex.horizon_calls
+                                           for ex in executors),
+                      "horizon_tokens": sum(ex.horizon_tokens
+                                            for ex in executors),
+                      "host_readbacks": sum(ex.host_readbacks
+                                            for ex in executors),
+                      "transfers": cluster.transfer_count,
+                      "controller_moves": (ctl.moves if ctl else [])},
+                     indent=2, default=str))
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-14b")
     ap.add_argument("--engine", choices=["sim", "torch", "live"],
@@ -123,18 +234,50 @@ def main(argv=None):
                     help="torch: longest context an instance holds")
     ap.add_argument("--hbm-blocks", type=int, default=8192,
                     help="torch: 16-token KV blocks an instance")
+    # live-mode knobs
+    ap.add_argument("--controller", action="store_true",
+                    help="live: adapt sliders online (epoch-based)")
+    ap.add_argument("--epoch", type=float, default=2.0,
+                    help="live: controller epoch seconds")
+    ap.add_argument("--window", type=float, default=5.0,
+                    help="live: telemetry window seconds")
+    ap.add_argument("--snapshot-every", type=float, default=5.0,
+                    help="live: telemetry snapshot cadence")
+    ap.add_argument("--stream", action="store_true",
+                    help="live: print every streamed token")
+    ap.add_argument("--pace", action="store_true",
+                    help="live: pace events to wall-clock time")
+    ap.add_argument("--horizon", type=int, default=8,
+                    help="live: max fused decode steps per iteration "
+                         "(adaptive; 1 = classic single-step)")
+    ap.add_argument("--no-async", action="store_true",
+                    help="live: disable the non-blocking dispatch/"
+                         "commit executor pipeline")
+    # tracing knobs (live mode)
+    ap.add_argument("--trace", action="store_true",
+                    help="record per-request lifecycle traces and print "
+                         "an SLO violation attribution report")
+    ap.add_argument("--trace-out", metavar="PATH", default=None,
+                    help="write a Chrome/Perfetto trace JSON after the "
+                         "run (implies --trace)")
+    ap.add_argument("--trace-jsonl", metavar="PATH", default=None,
+                    help="write the trace event log as JSON lines "
+                         "(implies --trace)")
     ap.add_argument("--serve", metavar="HOST:PORT", default=None,
                     help="(not in the port yet)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def main(argv=None):
+    args = parse_args(argv)
     if args.serve:
-        sys.exit("--serve " + _LATER)
-    if args.engine == "live":
-        sys.exit("--engine live " + _LATER)
+        sys.exit(_LATER_SERVE)
 
     slo = SLO(ttft=args.ttft_slo, tpot=args.tpot_slo)
     if args.engine == "torch":
         return _torch_mode(args, slo)
+    if args.engine == "live":
+        return _live_mode(args, slo)
 
     sc = ServingConfig(model=args.arch, tp=args.tp, policy=args.policy,
                        sliders=Sliders(n_p=args.np, n_d=args.nd,

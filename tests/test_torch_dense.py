@@ -37,7 +37,10 @@ from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       decode_attention_ref)
 
 from test_torch_engine import Side, _drive
-from test_torch_helpers import both_params
+from test_torch_helpers import both_params, copying_reference  # noqa: F401
+
+# the reference's host arrays may alias its in-flight inputs on the CPU
+pytestmark = pytest.mark.usefixtures("copying_reference")
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DTYPES = {"float32": (jnp.float32, torch.float32),

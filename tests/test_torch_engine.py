@@ -22,7 +22,10 @@ from repro_torch.engine.engine import (DenseRowAllocator,
                                        packable)
 from repro_torch.engine.request import Request
 
-from test_torch_helpers import both_params
+from test_torch_helpers import both_params, copying_reference  # noqa: F401
+
+# the reference's host arrays may alias its in-flight inputs on the CPU
+pytestmark = pytest.mark.usefixtures("copying_reference")
 
 
 class Side:
@@ -99,7 +102,7 @@ def test_paged_uneven_buckets_token_exact(sides, kv_quant):
     assert all(len(o) == 6 for o in got)
     assert 0 < ex.host_readbacks <= iters
     assert ex.host_syncs <= ex.host_readbacks
-    assert not ex.horizon_capable
+    assert ex.horizon_capable
     assert ex.cache_bytes() == ex.kv.pool_bytes() > 0
 
 
@@ -235,9 +238,15 @@ def test_step_async_defers_the_readback_and_abort_releases(sides):
         ex.step_async(Plan)
     ex.abort_step()
     assert ex._pending is None and len(req.output_tokens) == 1
+    # a 4-step horizon with a 2-token budget: one dispatch, one readback,
+    # two tokens
     Plan.horizon = 4
-    with pytest.raises(NotImplementedError, match="horizon"):
-        ex.step_async(Plan)
+    Plan.decode_budgets = [2]
+    step = ex.step_async(Plan)
+    assert step.horizon == 4 and ex.horizon_calls == 1
+    step.resolve()
+    assert ex.host_readbacks == 2 and step.emitted == {req.rid: 2}
+    assert len(req.output_tokens) == 3 and ex.horizon_tokens == 2
     ex.on_crash()
     assert not ex.slots.has(req.rid)
     assert (ex.kv.tables == -1).all()

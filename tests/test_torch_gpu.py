@@ -581,3 +581,254 @@ def test_executor_on_the_card_matches_itself_on_the_cpu(cuda, kv_quant):
     assert paged_decode_attention.launches > d0
     assert paged_chunked_prefill_attention.launches > p0
     assert on_card == gen(torch.device("cpu"))
+
+
+# ---------------------------------------------------------------------------
+# decode-only steps replayed as CUDA graphs
+# ---------------------------------------------------------------------------
+
+#: reduced zamba2 at the kernels' head dims (as the hybrid test above)
+def _zamba_cfg():
+    return dataclasses.replace(reduced_config("zamba2-7b"), ssm_headdim=64,
+                               ssm_state=64, head_dim=112, num_heads=2,
+                               num_kv_heads=2)
+
+
+def _decoding(cfg, dev, n=3, seed=7, **kw):
+    """An executor on ``dev`` (weights from seed 7) whose ``n`` requests
+    (prompts from ``seed``) have prefilled and entered decode, one token
+    each."""
+    ex = TorchExecutor(cfg, _to_dev(tf.init_params(7, cfg, "cpu"), dev),
+                       n_slots=n + 1, max_seq=256, t_buckets=(8, 16, 32, 64),
+                       device=dev, **kw)
+    inst = Instance(0, D_HEAVY, 256, CostModel(cfg, InstanceSpec(tp=1)), ex,
+                    hbm_blocks=512)
+    rng = np.random.default_rng(seed)
+    reqs = [Request(prompt_len=m, max_new_tokens=64, hidden_output_len=64,
+                    prompt_tokens=list(map(int, rng.integers(
+                        1, cfg.vocab_size, size=m))))
+            for m in (11, 37, 20, 52)[:n]]
+    for r in reqs:
+        inst.enqueue_prefill(r)
+    dur, done, _ = inst.run_iteration(0.0)
+    for r in done:
+        inst.admit_decode(r)
+    assert all(r.output_len == 1 for r in reqs)
+    return ex, inst, reqs
+
+
+def _paged_step(ex, reqs, K):
+    """(key, step function, host inputs) of a K-step paged horizon over
+    ``reqs`` at a budget of K each."""
+    slots = [ex.slots.slot(r.rid) for r in reqs]
+    for r, s in zip(reqs, slots):
+        ex.kv.grow_for(s, r.rid, int(ex.positions[s]) + K, False)
+    from repro_torch.engine.batching import pack_decode
+    p = pack_decode([int(ex.last_token[s]) for s in slots],
+                    [int(ex.positions[s]) for s in slots], [K] * len(slots),
+                    [ex.kv.tables[s] for s in slots], ex.kv.max_blocks,
+                    ex.cache_block_size)
+    return (("paged",) + p.tables.shape + (K,),
+            lambda *a: (ex._horizon_paged(*a, K=K),),
+            (p.tokens, p.start, p.budget, p.tables))
+
+
+def _dense_step(ex, reqs, K):
+    budget = np.zeros(ex.n_slots, np.int32)
+    for r in reqs:
+        budget[ex.slots.slot(r.rid)] = K
+    if K == 1:
+        return (("dense", 1), lambda *a: (ex._decode_fused(*a),),
+                (ex.last_token[:, None], ex.positions, budget))
+    return (("dense", K), lambda *a: (ex._horizon_dense(*a, K=K),),
+            (ex.last_token, ex.positions, budget))
+
+
+def _captured_vs_uncaptured(ex, step):
+    """Run ``step`` as its graph's replay and as the plain step function,
+    each from the same copy of the cache; returns (replayed outputs,
+    uncaptured outputs, cache after the replay, cache after the plain
+    run)."""
+    key, fn, host = step
+    cache = ex.kv.pool if ex.paged else ex.cache
+    saved = {n: t.clone() for n, t in cache.items()}
+    restore = lambda: [cache[n].copy_(t) for n, t in saved.items()]
+    ex._dispatch(key, fn, *host)        # first use: eager run, capture
+    assert key in ex.graphs.graphs
+    restore()
+    replayed = [t.clone() for t in ex._dispatch(key, fn, *host)]
+    after_replay = {n: t.clone() for n, t in cache.items()}
+    restore()
+    plain = fn(*(torch.from_numpy(np.array(a)).to(ex.device) for a in host))
+    torch.cuda.synchronize()
+    return replayed, list(plain), after_replay, cache
+
+
+@pytest.mark.parametrize("kind", ["paged", "paged-int8", "dense-packed",
+                                  "dense-hybrid"])
+def test_captured_step_equals_uncaptured(cuda, kind):
+    """A replay writes the KV (and recurrent state) and returns the tokens
+    that the step function run without a graph gives from the same cache,
+    bit for bit: the paged horizon, the packed-dense horizon and the
+    full-slot-batch dense decode."""
+    if kind == "dense-hybrid":
+        ex, _, reqs = _decoding(_zamba_cfg(), cuda)
+        step = _dense_step(ex, reqs, 1)
+    elif kind == "dense-packed":
+        ex, _, reqs = _decoding(reduced_config("qwen2.5-3b"), cuda,
+                                paged=False)
+        step = _dense_step(ex, reqs, 4)
+    else:
+        ex, _, reqs = _decoding(reduced_config("qwen2.5-3b"), cuda,
+                                kv_quant="int8" if "int8" in kind else None)
+        step = _paged_step(ex, reqs, 4)
+    replayed, plain, after_replay, after_plain = \
+        _captured_vs_uncaptured(ex, step)
+    for a, b in zip(replayed, plain):
+        assert torch.equal(a, b)
+    for n in after_plain:
+        assert torch.equal(after_replay[n], after_plain[n]), n
+
+
+def test_replays_count_the_launches_their_graphs_hold(cuda):
+    cfg = reduced_config("qwen2.5-3b")
+    ex, _, reqs = _decoding(cfg, cuda)
+    key, fn, host = _paged_step(ex, reqs, 4)
+    n0 = paged_decode_attention.launches
+    ex._dispatch(key, fn, *host)        # eager: 4 steps, 2 layers
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches - n0 == 4 * cfg.num_layers
+    assert ex.graphs.graphs[key].launches == {
+        paged_decode_attention: 4 * cfg.num_layers}
+    n1 = paged_decode_attention.launches
+    for _ in range(3):
+        ex._dispatch(key, fn, *host)
+    assert paged_decode_attention.launches - n1 == 3 * 4 * cfg.num_layers
+    assert ex.graphs.replays == 3 and ex.graphs.captures == 1
+
+
+def test_two_buckets_share_one_pool_and_replay_in_turn(cuda):
+    """Two horizon buckets (K 2 and 4) captured into one memory pool
+    replay in turn, each equal to its uncaptured run."""
+    ex, _, reqs = _decoding(reduced_config("qwen2.5-3b"), cuda)
+    steps = [_paged_step(ex, reqs, 2), _paged_step(ex, reqs, 4)]
+    pool = ex.kv.pool
+    saved = {n: t.clone() for n, t in pool.items()}
+    restore = lambda: [pool[n].copy_(t) for n, t in saved.items()]
+    for key, fn, host in steps:
+        ex._dispatch(key, fn, *host)
+        restore()
+    assert len(ex.graphs) == 2 and ex.graphs.captures == 2
+    for _ in range(2):
+        for key, fn, host in steps:
+            got = ex._dispatch(key, fn, *host)[0].clone()
+            restore()
+            want = fn(*(torch.from_numpy(np.array(a)).to(cuda)
+                        for a in host))[0]
+            restore()
+            assert torch.equal(got, want)
+
+
+def test_pool_rebuild_drops_the_graphs(cuda):
+    """An instance that hands a paged executor a prefix cache of another
+    block count rebuilds its pool: the graphs holding the old pool go,
+    and the decode-only steps that follow capture anew and generate the
+    CPU's tokens."""
+    from repro_torch.cache.prefix_cache import PrefixCache
+    cfg = reduced_config("qwen2.5-3b")
+    params = tf.init_params(8, cfg, "cpu")
+
+    def run(dev):
+        ex = TorchExecutor(cfg, _to_dev(params, dev), n_slots=4,
+                           max_seq=256, device=dev)
+        if dev.type == "cuda":
+            ex._dispatch(*_paged_step_empty(ex))
+            assert len(ex.graphs) == 1
+        inst = Instance(0, D_HEAVY, 256, CostModel(cfg, InstanceSpec(tp=1)),
+                        ex, hbm_blocks=300,
+                        prefix_cache=PrefixCache(300, 16))
+        assert ex.kv.num_blocks == 300
+        if dev.type == "cuda":
+            assert len(ex.graphs) == 0
+        out = _serve_fresh(cfg, inst)
+        if dev.type == "cuda":
+            assert len(ex.graphs) > 0
+        return out
+
+    assert run(cuda) == run(torch.device("cpu"))
+
+
+def _paged_step_empty(ex):
+    """A one-step horizon bucket over no live row (budget 0: nothing is
+    written), to give a fresh executor a graph."""
+    host = (np.zeros(1, np.int32), np.zeros(1, np.int32),
+            np.zeros(1, np.int32), np.full((1, 1), -1, np.int32))
+    return (("paged", 1, 1, 1), lambda *a: (ex._horizon_paged(*a, K=1),),
+            *host)
+
+
+def _serve_fresh(cfg, inst, seed=9):
+    rng = np.random.default_rng(seed)
+    reqs = [Request(prompt_len=m, max_new_tokens=10, hidden_output_len=10,
+                    prompt_tokens=list(map(int, rng.integers(
+                        1, cfg.vocab_size, size=m))))
+            for m in (13, 29)]
+    for r in reqs:
+        inst.enqueue_prefill(r)
+    now = 0.0
+    for _ in range(100):
+        if all(r.done() for r in reqs):
+            break
+        dur, done, _ = inst.run_iteration(now)
+        now += dur
+        for r in done:
+            inst.admit_decode(r)
+    assert all(r.done() for r in reqs)
+    return [r.output_tokens for r in reqs]
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "hybrid"])
+def test_graphs_stay_valid_across_a_migration_landing(cuda, paged):
+    """The destination of a migration has captured its decode graphs
+    before the state lands (into its pool or dense cache, in place): the
+    migrated request and the destination's own go on with the tokens of
+    the same run on the CPU."""
+    cfg = reduced_config("qwen2.5-3b") if paged else _zamba_cfg()
+
+    def run(dev):
+        src, src_inst, moving = _decoding(cfg, dev, n=1, seed=3)
+        dst, dst_inst, local = _decoding(cfg, dev, n=2, seed=4)
+        for inst in (src_inst, dst_inst):
+            for _ in range(3):
+                inst.run_iteration(0.0)
+        if dev.type == "cuda":
+            assert len(dst.graphs) > 0
+        dst_inst.inject(moving[0], src_inst.eject(moving[0]))
+        reqs = moving + local
+        for _ in range(200):
+            if all(r.done() for r in reqs):
+                break
+            dst_inst.run_iteration(0.0)
+        assert all(r.done() for r in reqs)
+        return [r.output_tokens for r in reqs]
+
+    assert run(cuda) == run(torch.device("cpu"))
+
+
+def test_nongreedy_replays_draw_new_numbers(cuda):
+    """The sampling generator is registered with the graph: two replays
+    of one bucket from the same cache draw different tokens, and both
+    stay in the vocabulary."""
+    cfg = reduced_config("qwen2.5-3b")
+    ex, _, reqs = _decoding(cfg, cuda, greedy=False, temperature=2.0)
+    key, fn, host = _paged_step(ex, reqs, 8)
+    pool = ex.kv.pool
+    saved = {n: t.clone() for n, t in pool.items()}
+    ex._dispatch(key, fn, *host)
+    draws = []
+    for _ in range(2):
+        for n, t in saved.items():
+            pool[n].copy_(t)
+        draws.append(ex._dispatch(key, fn, *host)[0][:8, :len(reqs)].clone())
+    assert not torch.equal(draws[0], draws[1])
+    assert all(((d >= 0) & (d < cfg.vocab_size)).all() for d in draws)

@@ -3,6 +3,7 @@ weights on both sides."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from repro.models import transformer as jax_tf
 from repro_torch.convert import params_from_jax
@@ -26,6 +27,33 @@ def numpy_params(cfg_jax, seed=0):
         return (rng.standard_normal(s.shape) * scale).astype(np.float32)
 
     return jax.tree.map(draw, shapes)
+
+
+class CopyingJnp:
+    """``jax.numpy`` whose ``asarray`` copies its input.  On the CPU
+    backend the reference's ``JaxExecutor`` hands ``jnp.asarray`` the
+    numpy arrays ``self.positions`` and ``self.last_token``, which may
+    alias them, and updates them in place while the step that reads them
+    is still in flight (the dense decode advances ``positions`` right
+    after its dispatch).  Under load its greedy streams then vary from
+    run to run (a zamba2 migration round trip gave two distinct streams
+    in 12 runs beside six busy processes; the port's gave one).  With
+    copies the reference is its algorithm alone."""
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    @staticmethod
+    def asarray(a, *args, **kw):
+        return jnp.array(np.array(a), *args, **kw)
+
+
+@pytest.fixture
+def copying_reference(monkeypatch):
+    """The reference's engine with copying ``jnp.asarray`` (see
+    :class:`CopyingJnp`)."""
+    import repro.engine.engine as jax_engine
+    monkeypatch.setattr(jax_engine, "jnp", CopyingJnp())
 
 
 def both_params(cfg_jax, cfg_torch, seed=0):

@@ -40,8 +40,8 @@ def test_no_reference_or_jax_import(path):
 
 def test_port_has_files_to_check():
     names = {p.name for p in _port_files()}
-    assert {"engine.py", "attention.py", "cluster.py",
-            "chip_smoke.py"} <= names
+    assert {"engine.py", "graphs.py", "attention.py", "cluster.py",
+            "server.py", "admission.py", "chip_smoke.py"} <= names
 
 
 def test_port_imports_without_jax_or_toolchain():
@@ -116,6 +116,7 @@ CARRIED_OVER = [
     "core/proxy.py", "core/flowing.py", "core/latency.py",
     "sim/workload.py", "serving/tracing.py", "sim/simulator.py",
     "configs/registry.py", "configs/__init__.py",
+    "serving/metrics.py", "serving/controller.py",
 ]
 
 

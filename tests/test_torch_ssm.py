@@ -38,7 +38,10 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import transformer as tf
 
-from test_torch_helpers import both_params, numpy_params
+from test_torch_helpers import both_params, numpy_params, copying_reference  # noqa: F401
+
+# the reference's host arrays may alias its in-flight inputs on the CPU
+pytestmark = pytest.mark.usefixtures("copying_reference")
 
 SSD_ATOL = 2e-3
 
