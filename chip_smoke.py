@@ -32,6 +32,19 @@ printing one JSON line; any failure raises and the process exits non-zero
                  non-blocking cluster with decode horizons up to K = 8,
                  the same 32 requests arriving at 8 a second; TTFT / TPOT
                  percentiles, horizons, readbacks, graphs, launches
+  frontend       ``--serve``'s stack on ``live``'s executors: the
+                 ``FrontendServer`` on 127.0.0.1 (port 0) over the live
+                 loop, eight concurrent clients (streaming and whole,
+                 completions and chat), ``/healthz`` and ``/metrics``, a
+                 graceful drain with the requests in flight; each reply
+                 the detokenised tokens of its request, the usage counts,
+                 tokenizer workers without torch; client TTFT and TPOT
+  tiers          the KV tiers on int8 pools at full width: a 1024-token
+                 hot prefix spilled to the host by a cold prompt that
+                 needs the pool and promoted back, a prefix replicated
+                 into a fresh executor, checkpoint blocks; blocks bit-equal
+                 after every round trip, tokens equal to never-evicted
+                 runs; host seconds of the spill's fetch and load legs
   graphs_paged   one paged horizon bucket (4 rows, K = 8) at full width:
                  its graph's replay against the step run without a graph
                  from the same pool, tokens and KV bit for bit
@@ -62,7 +75,9 @@ printing one JSON line; any failure raises and the process exits non-zero
 ``serve_zamba2`` line, the scan time over its served prefills.
 
 Then one line ``{"kernels": [...]}`` with, for every kernel of the port,
-its launches on the main path that runs it, its error against the plain
+its launches on the paths that run it (``live``, ``frontend`` and
+``tiers`` for the paged kernels, ``serve_zamba2`` for the dense ones;
+``launches_by_path`` splits them), its error against the plain
 version and its time beside the plain version's, the card's bound and one
 library call; the card's name and power limit as ``nvidia-smi`` prints
 them; and last ``{"ok": true, "device": {...}}``.
@@ -75,8 +90,10 @@ import dataclasses
 import gc
 import json
 import os
+import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -94,6 +111,9 @@ from repro_torch.core.policies import Sliders  # noqa: E402
 from repro_torch.engine.batching import bucket_batch, pack_decode  # noqa: E402
 from repro_torch.engine.engine import PendingStep, TorchExecutor  # noqa: E402
 from repro_torch.engine.request import Request  # noqa: E402
+from repro_torch.frontend import (AdmissionConfig, ByteTokenizer,  # noqa: E402
+                                  FrontendConfig, FrontendServer)
+from repro_torch.frontend import protocol  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.chunked_prefill_attention import ops as pf_ops  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
@@ -866,6 +886,399 @@ def phase_live(cfg, params, name="live", executors=None):
 
 
 # ---------------------------------------------------------------------------
+# the KV tiers' tensor legs: host spill, prefix replication, checkpoints
+# ---------------------------------------------------------------------------
+
+TIER_HOT, TIER_COLD = 1024, 1536     # tokens: 64 blocks, then 96
+TIER_POOL = 100                      # blocks: the cold prompt needs them all
+
+
+class TimedLegs:
+    """A spill tier's fetch and load legs, timed on the host clock (each
+    leg returns only when its copy has landed)."""
+
+    def __init__(self, ex):
+        self.ex = ex
+        self.fetch_s = self.load_s = 0.0
+        self.fetches = self.loads = 0
+        ex.prefix_cache_obj.bind_tiers(fetch_block=self.fetch,
+                                       load_block=self.load)
+
+    def fetch(self, bid):
+        t0 = time.perf_counter()
+        out = self.ex.fetch_block(bid)
+        self.fetch_s += time.perf_counter() - t0
+        self.fetches += 1
+        return out
+
+    def load(self, bid, payload):
+        t0 = time.perf_counter()
+        self.ex.load_block(bid, payload)
+        torch.cuda.current_stream().synchronize()
+        self.load_s += time.perf_counter() - t0
+        self.loads += 1
+
+
+def tier_executor(cfg, params, blocks, spill=0):
+    """A paged int8-pool executor with a prefix cache (and, given
+    ``spill``, a host spill tier) under one D-heavy instance."""
+    ex = TorchExecutor(cfg, params, n_slots=4, max_seq=4096,
+                       hbm_blocks=blocks, prefix_cache=True,
+                       kv_quant="int8", kv_spill_blocks=spill, device=DEV)
+    inst = Instance(0, D_HEAVY, 1024, CostModel(cfg, InstanceSpec(tp=1)),
+                    ex, hbm_blocks=blocks)
+    assert inst.prefix_cache is ex.prefix_cache_obj
+    return ex, inst
+
+
+def serve_alone(inst, prompt, n_out=16, probe=None):
+    """Serve one request to its end on ``inst`` (``probe(req)`` runs once
+    after its second token, while it is resident)."""
+    r = Request(prompt_len=len(prompt), max_new_tokens=n_out,
+                hidden_output_len=n_out, prompt_tokens=list(prompt))
+    inst.enqueue_prefill(r)
+    now = 0.0
+    for _ in range(10 * n_out):
+        if r.done():
+            break
+        dur, done, _ = inst.run_iteration(now)
+        now += dur
+        for d in done:
+            inst.admit_decode(d)
+        if probe is not None and r.output_len == 2:
+            probe(r)
+            probe = None
+    assert r.done() and len(r.output_tokens) == n_out, r.state
+    return r
+
+
+def host_bit_equal(a, b, blocks):
+    """Two block payloads (host tensors, [L, blocks * 16, ...] a leaf)
+    equal bit for bit on their first ``blocks`` blocks."""
+    n = blocks * BLOCK
+    return set(a) == set(b) and all(
+        torch.equal(a[k][:, :n], b[k][:, :n]) for k in a)
+
+
+@torch.no_grad()
+def phase_tiers(cfg, params):
+    """The host spill tier, hot-prefix replication and checkpoint blocks
+    at qwen2.5-3b's full width on int8 pools (``tests/test_kv_tiers_live
+    .py``'s spill case at full width): a 1024-token hot prefix (64
+    blocks) is served, evicted to the host by a 1536-token cold prompt
+    that needs the whole 100-block pool, and promoted back for its next
+    hit.  Held: the promoted blocks bit-equal to their contents before
+    the eviction, the re-served request's tokens equal to a never-evicted
+    run's at the same batch shapes (the prefix cached in the pool), a
+    replicated prefix's blocks bit-equal on the importer and its decode's
+    tokens equal to the locally prefilled run's, and checkpoint blocks
+    equal to the pool slices they name."""
+    rng = np.random.default_rng(41)
+    hot, cold = ([int(x) for x in rng.integers(1, cfg.vocab_size, size=n)]
+                 for n in (TIER_HOT, TIER_COLD))
+    full = TIER_HOT // BLOCK
+    # counts to 0 just before the tiers' path, read just after
+    reset_counts(PAGED_KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+
+    # control: the hot prefix never leaves the pool
+    ctl, ctl_inst = tier_executor(cfg, params, 4 * TIER_POOL)
+    serve_alone(ctl_inst, hot)
+    ctl_again = serve_alone(ctl_inst, hot)
+
+    # pressured pool with a host tier
+    ex, inst = tier_executor(cfg, params, TIER_POOL, spill=2 * TIER_POOL)
+    legs = TimedLegs(ex)
+    pc = ex.prefix_cache_obj
+    serve_alone(inst, hot)
+    before = ex.export_prefix_blocks(hot)
+    assert before["n_blocks"] == full and before["kv_format"] == "int8"
+    checkpoint = {}
+
+    def check_checkpoint(r):
+        n = ex.kv.allocator.owned_count(r.rid)
+        got = ex.export_request_blocks(r, range(n))
+        bids = ex.kv.allocator.owned(r.rid)
+        checkpoint["blocks"] = len(got)
+        checkpoint["equal"] = all(
+            torch.equal(e["kv"][k], leaf[:, bids[i] * BLOCK:
+                                         (bids[i] + 1) * BLOCK].cpu())
+            for i, e in got.items() for k, leaf in ex.kv.pool.items())
+    serve_alone(inst, cold, probe=check_checkpoint)
+    spilled = pc.spilled_blocks
+    assert spilled >= full and pc.match_tokens(hot + [0]) == 0, spilled
+    c = serve_alone(inst, hot)
+    promoted = inst.spill_promoted_tokens // BLOCK
+    after = ex.export_prefix_blocks(hot)
+    promoted_equal = host_bit_equal(after["paged_blocks"],
+                                    before["paged_blocks"], promoted)
+
+    # replication: the control's cached prefix into a fresh executor
+    state = ctl.export_prefix_blocks(hot)
+    dst, dst_inst = tier_executor(cfg, params, 4 * TIER_POOL)
+    t1 = time.perf_counter()
+    landed = dst.import_prefix_blocks(state)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t1
+    replica_equal = host_bit_equal(dst.export_prefix_blocks(hot)
+                                   ["paged_blocks"], state["paged_blocks"],
+                                   full)
+    replica = serve_alone(dst_inst, hot)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(PAGED_KERNELS)
+
+    for e in (ctl, ex, dst):
+        e.kv.check_invariants()
+    al = pc.allocator
+    assert al.free_blocks + al.cached_blocks + al.used_blocks == TIER_POOL
+    block_bytes = ex.kv.token_bytes() * BLOCK
+    emit("tiers", model=cfg.name, kv_quant="int8", pool_blocks=TIER_POOL,
+         hot_tokens=TIER_HOT, cold_tokens=TIER_COLD,
+         spilled_blocks=spilled, promoted_blocks=promoted,
+         spill_fetches=legs.fetches, spill_loads=legs.loads,
+         fetch_s=legs.fetch_s, load_s=legs.load_s,
+         fetch_ms_a_block=1e3 * legs.fetch_s / max(legs.fetches, 1),
+         load_ms_a_block=1e3 * legs.load_s / max(legs.loads, 1),
+         bytes_a_block=block_bytes,
+         promoted_bit_equal=promoted_equal,
+         cached_prefix_tokens=c.cached_prefix_len,
+         tokens_equal_never_evicted=c.output_tokens
+         == ctl_again.output_tokens,
+         replicated_blocks=landed, replica_bit_equal=replica_equal,
+         import_s=import_s, replica_cached_tokens=replica.cached_prefix_len,
+         replica_tokens_equal_local=replica.output_tokens
+         == ctl_again.output_tokens,
+         checkpoint_blocks=checkpoint.get("blocks"),
+         checkpoint_equal_pool=checkpoint.get("equal"),
+         int8_launches=launches, wall_s=wall)
+    assert promoted >= full - 1, promoted
+    assert legs.fetches >= full and legs.loads == promoted
+    assert promoted_equal and replica_equal
+    assert c.cached_prefix_len >= (full - 1) * BLOCK
+    assert c.output_tokens == ctl_again.output_tokens
+    assert landed == full and replica.cached_prefix_len >= (full - 1) * BLOCK
+    assert replica.output_tokens == ctl_again.output_tokens
+    assert checkpoint.get("blocks", 0) > 0 and checkpoint["equal"]
+    assert all(n > 0 for n in launches.values()), launches
+    del ctl, ex, dst
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the OpenAI-compatible front end over the live loop
+# ---------------------------------------------------------------------------
+
+FRONTEND_CLIENTS = 8
+FRONTEND_MAX_TOKENS = 32
+
+
+def http_exchange(port, method, path, body=None):
+    """One HTTP/1.1 exchange on loopback; returns (status, raw body,
+    send time, arrival times of the ``data:`` frames) on the monotonic
+    clock."""
+    raw = b"" if body is None else json.dumps(body).encode()
+    s = socket.create_connection(("127.0.0.1", port), timeout=120)
+    frames, data = [], b""
+    try:
+        t_send = time.monotonic()
+        s.sendall((f"{method} {path} HTTP/1.1\r\nHost: smoke\r\n"
+                   f"Content-Length: {len(raw)}\r\n"
+                   "Connection: close\r\n\r\n").encode() + raw)
+        while chunk := s.recv(65536):
+            data += chunk
+            now = time.monotonic()
+            frames += [now] * (data.count(b"data: ") - len(frames))
+    finally:
+        s.close()
+    head, _, payload = data.partition(b"\r\n\r\n")
+    return int(head.split(b" ", 2)[1]), payload, t_send, frames
+
+
+def sse_text(payload):
+    """(text, finished) of a chunked SSE reply: the concatenated deltas,
+    and whether it ended with ``[DONE]`` and no error notice."""
+    body, rest = b"", payload
+    while rest:
+        size, _, rest = rest.partition(b"\r\n")
+        n = int(size, 16)
+        if n == 0:
+            break
+        body += rest[:n]
+        rest = rest[n + 2:]
+    text, done, errored = "", False, False
+    for ev in body.split(b"\n\n"):
+        if ev == b"data: [DONE]":
+            done = True
+        elif ev.startswith(b"data: "):
+            obj = json.loads(ev[len(b"data: "):])
+            if "choices" not in obj:
+                errored = True
+                continue
+            ch = obj["choices"][0]
+            text += ch.get("text") or ch.get("delta", {}).get("content", "")
+    return text, done and not errored
+
+
+def frontend_request(i, rng):
+    """Client ``i``: streaming (even) or whole, completions or chat (every
+    third), with a prompt of 200-800 bytes."""
+    words = " ".join(f"w{int(x)}" for x in rng.integers(0, 10 ** 6,
+                                                        size=120))
+    text = f"client {i}: " + words[:int(rng.integers(200, 800))]
+    body = {"max_tokens": FRONTEND_MAX_TOKENS, "stream": i % 2 == 0}
+    if i % 3 == 1:
+        body["messages"] = [{"role": "user", "content": text}]
+        return protocol.CHAT_COMPLETIONS, body
+    body["prompt"] = text
+    return protocol.COMPLETIONS, body
+
+
+def maps_torch(pid):
+    with open(f"/proc/{pid}/maps") as f:
+        return "libtorch" in f.read()
+
+
+def phase_frontend(cfg, executors):
+    """``--serve``'s stack at qwen2.5-3b's full width: the
+    ``FrontendServer`` on 127.0.0.1 (port 0) over the live loop (a
+    ``WallClock``-paced ``ServingLoop`` with K <= 8 horizons, behind an
+    admission queue), on ``live``'s executors, whose buckets are
+    captured.  Eight concurrent clients, streaming and whole, completions
+    and chat; ``/healthz`` and ``/metrics`` scraped once while they run;
+    then a graceful drain while the requests are in flight.  Held: status
+    200, ``[DONE]``, each reply's text the detokenised ``output_tokens``
+    of its request on the server, the usage counts, every request
+    finished by the drain, the string work in worker processes that have
+    no torch loaded."""
+    log = []
+    for ex in executors:
+        ex.log = log
+    sc = ServingConfig(model=MODEL, tp=1, policy="taichi",
+                       sliders=Sliders(n_p=1, n_d=1, s_p=1024, s_d=256),
+                       hbm_blocks=8192, block_size=BLOCK)
+    slo = SLO(ttft=5.0, tpot=0.2)
+    cluster = build_cluster(sc, slo, seed=0,
+                            executor_factory=iter(executors).__next__,
+                            async_exec=True)
+    cluster.set_horizon(8)
+    cluster._on_exec_error = raise_exec_error
+    loop = ServingLoop(cluster, slo, clock=WallClock(), pace=True,
+                       admission=AdmissionConfig(max_depth=64,
+                                                 max_inflight=16))
+    srv = FrontendServer(loop, FrontendConfig(
+        port=0, model=MODEL, tok_workers=2))
+    rng = np.random.default_rng(43)
+    clients = [frontend_request(i, rng) for i in range(FRONTEND_CLIENTS)]
+    replies = {}
+    captures = sum(ex.graphs.captures for ex in executors)
+
+    def client(i):
+        replies[i] = http_exchange(srv.port, "POST", *clients[i])
+
+    # counts to 0 just before the front end's path, read just after
+    reset_counts(PAGED_KERNELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server = threading.Thread(target=srv.run, name="frontend", daemon=True)
+    server.start()
+    threads = []
+    try:
+        assert srv.started.wait(timeout=120), "the server did not start"
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(FRONTEND_CLIENTS)]
+        for th in threads:
+            th.start()
+        health = http_exchange(srv.port, "GET", "/healthz")
+        metrics = http_exchange(srv.port, "GET", "/metrics")
+        # drain once every request is in flight (admitted, streaming)
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and srv._engine_thread.is_alive() \
+                and not (len(loop.requests) == FRONTEND_CLIENTS
+                         and any(r.output_len for r in loop.requests)):
+            time.sleep(0.01)
+        assert srv._engine_thread.is_alive(), "the engine thread died"
+        workers = [p.pid for p in srv.pipeline._procs]
+        workers_torch = [maps_torch(pid) for pid in workers]
+        drain_at = time.perf_counter()
+        in_flight = sum(not r.done() for r in loop.requests)
+    finally:
+        srv.shutdown()
+        for th in threads:
+            th.join(timeout=120)
+        server.join(timeout=120)
+    wall = time.perf_counter() - t0
+    drain_s = time.perf_counter() - drain_at
+    launches = launch_counts(PAGED_KERNELS)
+    assert not server.is_alive() and not any(t.is_alive() for t in threads)
+
+    by_prompt = {tuple(r.prompt_tokens): r for r in loop.requests}
+    ttft, tpot, gaps = [], [], []
+    usage_ok = wire_ok = 0
+    for i, (path, body) in enumerate(clients):
+        status, payload, t_send, frames = replies[i]
+        assert status == 200, (i, status, payload[:200])
+        text_in = protocol.parse_request(path, json.dumps(body).encode()
+                                         ).prompt_text
+        r = by_prompt[tuple(ByteTokenizer.encode(text_in))]
+        assert r.state.value == "finished", (i, r.state)
+        assert len(r.output_tokens) == FRONTEND_MAX_TOKENS
+        want = ByteTokenizer.decode(r.output_tokens)
+        if body["stream"]:
+            text, done = sse_text(payload)
+            assert done, i
+            ttft.append(frames[0] - t_send)
+            token_frames = frames[:-2]          # the finish and [DONE]
+            gaps += list(np.diff(token_frames))
+            if len(token_frames) > 1:
+                tpot.append((token_frames[-1] - token_frames[0])
+                            / (len(token_frames) - 1))
+        else:
+            obj = json.loads(payload)
+            ch = obj["choices"][0]
+            text = ch["text"] if "text" in ch else ch["message"]["content"]
+            assert ch["finish_reason"] == "length"
+            usage_ok += obj["usage"] == {
+                "prompt_tokens": r.prompt_len,
+                "completion_tokens": FRONTEND_MAX_TOKENS,
+                "total_tokens": r.prompt_len + FRONTEND_MAX_TOKENS}
+        wire_ok += text == want
+    whole = sum(not b["stream"] for _, b in clients)
+    wire = loop.snapshot().get("wire")
+    emit("frontend", model=cfg.name, clients=FRONTEND_CLIENTS,
+         max_tokens=FRONTEND_MAX_TOKENS, horizon=8,
+         prompt_tokens=[len(ByteTokenizer.encode(
+             protocol.parse_request(p, json.dumps(b).encode()).prompt_text))
+             for p, b in clients],
+         status_200=sum(replies[i][0] == 200 for i in replies),
+         wire_exact=wire_ok, usage_exact=usage_ok, whole_replies=whole,
+         healthz=health[0], metrics_status=metrics[0],
+         metrics_keys=sorted(json.loads(metrics[1])),
+         wire_engine_to_socket=wire,
+         worker_pids=workers, main_pid=os.getpid(),
+         worker_torch_loaded=workers_torch,
+         seen_worker_pids=sorted(srv.seen_worker_pids),
+         in_flight_at_drain=in_flight, drain_s=drain_s,
+         client_ttft_s={"p50": pct(ttft, 50), "p90": pct(ttft, 90)},
+         client_tpot_s={"p50": pct(tpot, 50), "p90": pct(tpot, 90)},
+         client_interframe_s={"p50": pct(gaps, 50), "p90": pct(gaps, 90)},
+         captures_this_run=sum(ex.graphs.captures
+                               for ex in executors) - captures,
+         launches=launches, exec_errors=cluster.exec_errors, wall_s=wall)
+    assert wire_ok == FRONTEND_CLIENTS and usage_ok == whole
+    assert health[0] == 200 and metrics[0] == 200
+    assert workers and not any(workers_torch), workers_torch
+    assert srv.seen_worker_pids and os.getpid() not in srv.seen_worker_pids
+    assert in_flight > 0, "the drain found no request in flight"
+    assert cluster.exec_errors == 0, cluster.last_exec_error
+    assert all(n > 0 for n in launches.values()), launches
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # captured steps against the same steps run without a graph
 # ---------------------------------------------------------------------------
 
@@ -1443,15 +1856,19 @@ KERNEL_META = {
 }
 
 
-def kernels_line(cases, launches):
-    """One entry a kernel, at the shape of the main path that runs it."""
+def kernels_line(cases, by_path):
+    """One entry a kernel, at the shape of the main path that runs it;
+    ``launches`` sums the paths that run it (``by_path``: path -> kernel
+    -> launches, each counted from 0 over that path's run)."""
     out = []
     for name, (source, replaces, where) in KERNEL_META.items():
         c = next(c for c in cases if c["kernel"] == name
                  and all(c.get(k) == v for k, v in where.items()))
+        paths = {p: n[name] for p, n in by_path.items() if name in n}
         out.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(paths.values()),
+            "launches_by_path": paths,
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
@@ -1516,9 +1933,12 @@ def main(argv):
     # the same executors again: every horizon bucket of the run is
     # captured, so this run shows the steady state
     phase_live(cfg, params, "live_warm", executors)
+    by_path = {"live": launches,
+               "frontend": phase_frontend(cfg, executors)}
     del executors
     gc.collect()
     torch.cuda.empty_cache()
+    by_path["tiers"] = phase_tiers(cfg, params)
     phase_graphs("graphs_paged", check_paged_graph, cfg, params)
     # qwen2.5-3b's weights and pools go before zamba2-7b loads
     del params
@@ -1535,13 +1955,13 @@ def main(argv):
          parameters=count_params(zparams),
          device_bytes=torch.cuda.memory_allocated(),
          seconds=time.perf_counter() - t0)
-    launches.update(phase_serve_zamba2(zcfg, zparams))
+    by_path["serve_zamba2"] = phase_serve_zamba2(zcfg, zparams)
     gc.collect()
     torch.cuda.empty_cache()
     phase_graphs("graphs_dense", check_dense_graph, zcfg, zparams)
 
     emit("total", seconds=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": kernels_line(cases, launches)}), flush=True)
+    print(json.dumps({"kernels": kernels_line(cases, by_path)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

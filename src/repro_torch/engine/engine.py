@@ -57,9 +57,16 @@ from a CUDA graph captured at its bucket's first use
 ``jax.jit``.  Mixed and prefill steps run eagerly.  On the CPU the same
 step functions run directly.
 
-Not in the port yet, each raising where it would be reached: prefix-block
-export/import for replication and checkpoints, and the binding of the
-host spill tier.
+The KV tiers' tensor legs sit on the paged pool, as in the reference: the
+prefix cache's host spill tier copies an evicted block to host memory and
+scatters it back in place on promotion (``_bind_spill``), and whole
+blocks leave and land for hot-prefix replication
+(``export_prefix_blocks`` / ``import_prefix_blocks``) and warm-recovery
+checkpoints (``export_request_blocks``).  Every payload is host-resident
+(CPU tensors) and tagged with its KV format; every copy is ordered on the
+current stream behind the steps already enqueued, and a landing writes
+the pool in place, so the captured graphs keep reading the pool they
+were captured on.
 """
 from __future__ import annotations
 
@@ -77,11 +84,6 @@ from repro_torch.engine.paged import PagedKVCache
 from repro_torch.engine.request import Request
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ATTN, ModelConfig
-
-_LATER_SPILL = ("binding the host spill tier to the pool is not in the "
-                "port yet: it comes with the slice that ports prefix-block "
-                "export/import")
-
 
 class MigrationFormatError(ValueError):
     """A migrated engine state's KV format (dense row vs. paged blocks)
@@ -248,8 +250,6 @@ class TorchExecutor:
             raise RuntimeError(
                 "TorchExecutor(device='cuda'): no CUDA device is available "
                 "(pass device='cpu' to run the plain versions on the CPU)")
-        if kv_spill_blocks:
-            raise NotImplementedError(_LATER_SPILL)
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant: {kv_quant!r}")
         self.cfg = cfg
@@ -316,11 +316,14 @@ class TorchExecutor:
                   n_slots * (max_blocks + self.HEADROOM // cache_block_size))
             alloc = None
             if self.prefix_cache_enabled:
-                self.prefix_cache_obj = PrefixCache(nb, cache_block_size)
+                self.prefix_cache_obj = PrefixCache(
+                    nb, cache_block_size, spill_blocks=kv_spill_blocks)
                 alloc = self.prefix_cache_obj.allocator
             self.kv = PagedKVCache(cfg, n_slots, max_seq, nb,
                                    cache_block_size, allocator=alloc,
                                    quant=kv_quant, device=self.device)
+            if self.prefix_cache_obj is not None:
+                self._bind_spill(self.prefix_cache_obj)
             self._rows = None
         else:
             self.cache = tf.init_cache(cfg, n_slots, max_seq,
@@ -526,8 +529,6 @@ class TorchExecutor:
         the donor index.  Returns False (no rebind) when incompatible."""
         if not self.paged or pc.block_size != self.cache_block_size:
             return False
-        if pc.spill is not None:
-            raise NotImplementedError(_LATER_SPILL)
         self.prefix_cache_obj = pc
         self.prefix_cache_enabled = True
         pool = self.kv.pool
@@ -535,8 +536,38 @@ class TorchExecutor:
         if self.graphs is not None and self.kv.pool is not pool:
             # the pool was rebuilt: graphs holding the old one are stale
             self.graphs.clear()
+        self._bind_spill(pc)
         self._external_bookkeeping = True
         return True
+
+    def _bind_spill(self, pc: PrefixCache):
+        """Give the prefix cache's host spill tier real tensor legs:
+        eviction copies a block's pool slice to host memory, promotion
+        scatters it back into whatever block id the allocator hands out.
+        Without this binding the tier still runs (bookkeeping-only
+        payloads), which is what the simulator uses."""
+        if pc.spill is None:
+            return
+        pc.bind_tiers(fetch_block=self.fetch_block,
+                      load_block=self.load_block)
+
+    def _host_blocks(self, bids: Sequence[int]):
+        """Host copies of whole pool blocks, every leaf (an int8 pool's
+        scales too), in logical order.  The gather is enqueued on the
+        current stream behind every step already dispatched (a graph's
+        replay, or the side stream a first use ran on, which the current
+        stream waits for) and the copy blocks on that stream only."""
+        return {name: leaf.cpu()
+                for name, leaf in self.kv.extract_blocks(bids).items()}
+
+    def fetch_block(self, bid: int):
+        """The spill tier's eviction leg: a host copy of block ``bid``."""
+        return self._host_blocks([bid])
+
+    def load_block(self, bid: int, payload):
+        """The spill tier's promotion leg: scatter a host copy back into
+        block ``bid`` in place (a captured graph reads the same pool)."""
+        self.kv.insert_blocks([bid], payload)
 
     def sync(self):
         """Block until all in-flight device work has landed."""
@@ -1207,6 +1238,71 @@ class TorchExecutor:
         # republish the full prompt blocks so the migrated context is
         # adoptable on this instance
         self._register_donor(req, slot)
+
+    def export_request_blocks(self, req: Request, indices):
+        """Host copies of the blocks at the given indices of ``req``'s
+        owned block run (warm-recovery checkpoint materialization).
+        Side-effect free — no refcounts, no LRU touches, no slot state;
+        each payload carries its quantization format so the restore
+        path can refuse a mismatched destination pool.  None when this
+        executor cannot export (dense path, request not held, or an
+        async step still in flight — mid-flight tensors are torn)."""
+        if not self.paged or not self.kv.allocator.holds(req.rid):
+            return None
+        if self._pending is not None and not self._pending.resolved:
+            return None
+        bids = self.kv.allocator.owned(req.rid)
+        fmt = self.kv_quant or "fp"
+        return {i: {"fmt": fmt, "kv": self._host_blocks([bids[i]])}
+                for i in indices if 0 <= i < len(bids)}
+
+    # ------------------------------------------------------------------
+    # hot-prefix replication (block-granular, no request attached)
+    # ------------------------------------------------------------------
+    def export_prefix_blocks(self, tokens: Sequence[int]):
+        """Host copies of the cached pool blocks covering the longest
+        resident full-block prefix of ``tokens``, for replication to a
+        peer instance.  Side-effect free (no refcounts, no LRU touch) and
+        deliberately NOT capped like match_tokens: a hot path's last full
+        block is worth shipping even when a future request would still
+        owe one prefill token."""
+        pc = self.prefix_cache_obj
+        if not self.paged or pc is None:
+            return None
+        n = len(tokens) // self.cache_block_size
+        path = pc.tree.match(tokens, n, touch=False)
+        if not path:
+            return None
+        bids = [nd.bid for nd in path]
+        return {"paged_blocks": self._host_blocks(bids),
+                "n_blocks": len(bids),
+                "tokens": list(tokens[:len(bids) * self.cache_block_size]),
+                "kv_format": self.kv_quant or "fp"}
+
+    def import_prefix_blocks(self, state) -> int:
+        """Land replicated prefix blocks into this pool and publish them
+        to the donor tree.  Returns blocks newly admitted (0 when the
+        prefix is already resident, nothing fit below the free
+        watermark, or the payload carries no tensors — a bookkeeping-
+        only payload must never alias garbage pool contents)."""
+        pc = self.prefix_cache_obj
+        if not self.paged or pc is None:
+            return 0
+        fmt = state.get("kv_format", "fp")
+        want = self.kv_quant or "fp"
+        if fmt != want:
+            raise MigrationFormatError(
+                f"replicated KV is {fmt!r} but the destination pool is "
+                f"{want!r} — cross-format replication is unsupported")
+        if state.get("paged_blocks") is None:
+            return 0
+        res = pc.admit_replica(state["tokens"], state["n_blocks"])
+        if res is None:
+            return 0
+        skip, bids = res
+        self.kv.insert_blocks(bids, state["paged_blocks"],
+                              skip_blocks=skip)
+        return len(bids) - skip
 
     def migration_bytes(self, req: Request) -> int:
         slot = self.slots.slot(req.rid)

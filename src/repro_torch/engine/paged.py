@@ -152,17 +152,25 @@ class PagedKVCache:
         """Scatter shipped blocks into this pool at ``bids`` (logical
         order), in place.  The first ``skip_blocks`` are skipped — the
         destination already caches them and the table aliases its own
-        copies."""
+        copies.  The blocks may lie on the host (spill and replication
+        payloads); their leaves must be this pool's, in its types — a
+        payload is never cast."""
         take = bids[skip_blocks:]
         if not take:
             return
+        if set(blocks) != set(self.pool) or any(
+                blocks[name].dtype != leaf.dtype
+                for name, leaf in self.pool.items()):
+            have = {n: str(t.dtype) for n, t in blocks.items()}
+            want = {n: str(t.dtype) for n, t in self.pool.items()}
+            raise ValueError(f"shipped blocks {have} do not match this "
+                             f"pool's leaves {want}")
         idx = self._token_index(take)
         off = skip_blocks * self.block_size
         n = len(take) * self.block_size
         for name, leaf in self.pool.items():
             src = blocks[name][:, off:off + n]
-            leaf.index_copy_(1, idx, src.to(device=self.device,
-                                            dtype=leaf.dtype))
+            leaf.index_copy_(1, idx, src.to(self.device))
 
     # ------------------------------------------------------------------
     def token_bytes(self) -> int:

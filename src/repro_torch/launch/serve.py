@@ -19,8 +19,12 @@ paged executor path, Mamba2 and hybrid archs (mamba2-1.3b, zamba2-7b) the
 batched dense one, as ``engine.packable`` decides (and only the former
 fuse decode horizons).
 
-``--serve`` (the network front end) is not in the port yet and exits
-saying so.
+``--serve HOST:PORT`` puts the same live loop behind the OpenAI-compatible
+HTTP/SSE front end (``repro_torch.frontend``): ``POST /v1/completions``
+and ``/v1/chat/completions``, ``GET /healthz`` and ``/metrics``, with the
+tokenizer workers and the admission queue; it runs until SIGINT or
+SIGTERM, then drains.  Port 0 takes a free port; the ``serving ...`` line
+names the one bound.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
@@ -33,12 +37,15 @@ Examples:
       --arch smollm-135m --reduced --device cpu --qps 4 --n 8
   PYTHONPATH=src python -m repro_torch.launch.serve --engine torch \\
       --arch zamba2-7b --reduced --device cpu --qps 2 --n 8 --np 1 --nd 1
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine live \\
+      --serve 127.0.0.1:8000 --arch smollm-135m --reduced --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
+import threading
 import time
 
 from repro_torch.configs import get_config, reduced_config
@@ -46,10 +53,6 @@ from repro_torch.core.latency import SLO
 from repro_torch.core.policies import Sliders
 from repro_torch.sim.simulator import ServingConfig, build_cluster, run_sim
 from repro_torch.sim.workload import WORKLOADS, LengthDist, WorkloadSpec
-
-_LATER_SERVE = ("--serve is not in the PyTorch port yet: the HTTP front "
-                "end comes with a later slice; use --engine live")
-
 
 def _engine_setup(args, slo: SLO, async_exec: bool = False):
     """The cluster of the real-engine modes: shared random weights from a
@@ -133,11 +136,15 @@ def _dump_trace(loop, args, slo: SLO):
         indent=2, default=str))
 
 
-def live_loop(args, slo: SLO, on_token=None):
+def live_loop(args, slo: SLO, on_token=None, serve: bool = False):
     """The ``--engine live`` serving loop, built and not yet run, with
     ``on_token(req, t, tok)`` (if given) called for every streamed token.
+    With ``serve`` (``--serve``) it takes its requests from the front
+    end's ingress instead of a workload, paced on the wall clock, behind
+    an admission queue of ``--adm-depth`` / ``--adm-inflight``.
     Returns (cfg, loop, controller or None, streamed) where
     ``streamed["tokens"]`` counts the tokens the loop has streamed."""
+    from repro_torch.frontend import AdmissionConfig
     from repro_torch.serving import (ControllerConfig, ServingLoop,
                                      SliderController, WallClock)
     cfg, cluster, wl = _engine_setup(args, slo, async_exec=not args.no_async)
@@ -159,13 +166,17 @@ def live_loop(args, slo: SLO, on_token=None):
         if on_token is not None:
             on_token(req, t, tok)
 
+    pace = args.pace or serve
     loop = ServingLoop(
         cluster, slo,
-        arrivals=wl.iter_requests(args.qps, seed=0, max_new_tokens=32,
-                                  limit=args.n),
+        arrivals=None if serve else wl.iter_requests(
+            args.qps, seed=0, max_new_tokens=32, limit=args.n),
         controller=ctl, window=args.window, on_token=sink,
         snapshot_every=args.snapshot_every,
-        clock=WallClock() if args.pace else None, pace=args.pace,
+        clock=WallClock() if pace else None, pace=pace,
+        admission=(AdmissionConfig(max_depth=args.adm_depth,
+                                   max_inflight=args.adm_inflight)
+                   if serve else None),
         tracing=_trace_config(args))
     return cfg, loop, ctl, streamed
 
@@ -202,6 +213,34 @@ def _live_mode(args, slo: SLO):
                       "transfers": cluster.transfer_count,
                       "controller_moves": (ctl.moves if ctl else [])},
                      indent=2, default=str))
+
+
+def _serve_mode(args, slo: SLO):
+    """Deployable network front-end: the live loop of ``--engine live``
+    (on the card unless ``--device cpu``) behind the OpenAI-compatible
+    HTTP/SSE server (``repro_torch.frontend``), with the multi-process
+    tokenize/detokenize pipeline and the router-side admission queue.
+    Blocks until SIGINT/SIGTERM, then drains."""
+    from repro_torch.frontend import FrontendConfig, FrontendServer
+    host, _, port = args.serve.rpartition(":")
+    host = host or "127.0.0.1"
+    cfg, loop, _, _ = live_loop(args, slo, serve=True)
+    srv = FrontendServer(loop, FrontendConfig(
+        host=host, port=int(port), model=args.arch,
+        tok_workers=args.tok_workers))
+
+    def announce():
+        # the bound port is known once the server has started (port 0)
+        if srv.started.wait(timeout=600):
+            print(f"serving {cfg.name} ({args.policy}) on {args.device} at "
+                  f"http://{host}:{srv.port} — POST /v1/completions, "
+                  "/v1/chat/completions; GET /healthz, /metrics",
+                  flush=True)
+
+    threading.Thread(target=announce, name="announce", daemon=True).start()
+    srv.run(install_signals=True)
+    print(json.dumps(loop.snapshot(), default=str), flush=True)
+    _dump_trace(loop, args, slo)
 
 
 def parse_args(argv=None):
@@ -263,17 +302,25 @@ def parse_args(argv=None):
     ap.add_argument("--trace-jsonl", metavar="PATH", default=None,
                     help="write the trace event log as JSON lines "
                          "(implies --trace)")
+    # network front-end knobs
     ap.add_argument("--serve", metavar="HOST:PORT", default=None,
-                    help="(not in the port yet)")
+                    help="run the OpenAI-compatible HTTP/SSE server on "
+                         "the live engine (e.g. --serve 0.0.0.0:8000)")
+    ap.add_argument("--tok-workers", type=int, default=2,
+                    help="serve: tokenizer/detokenizer worker processes "
+                         "(0 = inline, single-process)")
+    ap.add_argument("--adm-depth", type=int, default=256,
+                    help="serve: admission queue depth bound")
+    ap.add_argument("--adm-inflight", type=int, default=64,
+                    help="serve: released-but-unfinished request cap")
     return ap.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.serve:
-        sys.exit(_LATER_SERVE)
-
     slo = SLO(ttft=args.ttft_slo, tpot=args.tpot_slo)
+    if args.serve:
+        return _serve_mode(args, slo)
     if args.engine == "torch":
         return _torch_mode(args, slo)
     if args.engine == "live":

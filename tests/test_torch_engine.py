@@ -181,8 +181,9 @@ def test_prefix_claim_aliases_blocks_token_exact(sides):
 def test_unported_paths_raise_and_formats_are_checked(sides):
     """``paged=False`` and ``batched=False`` build the dense paths (a
     slot-contiguous cache, admission by rows); a migrated state of the
-    other format is refused in both directions; the host spill tier still
-    raises."""
+    other format is refused in both directions, as is a replicated
+    prefix of the other KV format; the host spill tier binds its tensor
+    legs."""
     _, side = sides
     dense = TorchExecutor(side.cfg, side.params, 2, 64, paged=False,
                           device="cpu")
@@ -196,14 +197,22 @@ def test_unported_paths_raise_and_formats_are_checked(sides):
         assert ex.cache_bytes() == sum(t.numel() * t.element_size()
                                        for t in ex.cache.values())
     assert dense.packed and not rowwise.packed
-    with pytest.raises(NotImplementedError, match="spill"):
-        TorchExecutor(side.cfg, side.params, 2, 64, kv_spill_blocks=4,
-                      device="cpu")
+    spilling = TorchExecutor(side.cfg, side.params, 2, 64,
+                             kv_spill_blocks=4, prefix_cache=True,
+                             device="cpu")
+    pc = spilling.prefix_cache_obj
+    assert pc.spill is not None
+    assert pc._fetch_block == spilling.fetch_block
+    assert pc._load_block == spilling.load_block
     assert packable(side.cfg)
     ex = TorchExecutor(side.cfg, side.params, 2, 64, device="cpu")
     assert ex.paged
-    assert not hasattr(ex, "export_prefix_blocks")
-    assert not hasattr(ex, "import_prefix_blocks")
+    assert ex.export_prefix_blocks([1] * 32) is None    # no prefix cache
+    assert ex.import_prefix_blocks({"paged_blocks": {}}) == 0
+    with pytest.raises(MigrationFormatError):      # fp -> int8 pool
+        spilling.import_prefix_blocks({"paged_blocks": {}, "n_blocks": 1,
+                                       "tokens": [1] * 16,
+                                       "kv_format": "int8"})
     req = Request(prompt_len=4, max_new_tokens=2,
                   prompt_tokens=[1, 2, 3, 4])
     with pytest.raises(MigrationFormatError):      # dense -> paged

@@ -6,6 +6,10 @@ without jax:
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
 import dataclasses
+import json
+import os
+import socket
+import threading
 
 import numpy as np
 import pytest
@@ -832,3 +836,211 @@ def test_nongreedy_replays_draw_new_numbers(cuda):
         draws.append(ex._dispatch(key, fn, *host)[0][:8, :len(reqs)].clone())
     assert not torch.equal(draws[0], draws[1])
     assert all(((d >= 0) & (d < cfg.vocab_size)).all() for d in draws)
+
+
+# ---------------------------------------------------------------------------
+# the KV tiers' tensor legs and the front end on the card
+# ---------------------------------------------------------------------------
+
+def _tier_instance(cfg, params, blocks, quant, spill=0):
+    ex = TorchExecutor(cfg, params, n_slots=4, max_seq=256,
+                       t_buckets=(8, 16, 32), hbm_blocks=blocks,
+                       prefix_cache=True, kv_quant=quant,
+                       kv_spill_blocks=spill, device="cuda")
+    return ex, Instance(0, D_HEAVY, 32, CostModel(cfg, InstanceSpec(tp=1)),
+                        ex, hbm_blocks=blocks)
+
+
+def _serve_one(inst, prompt, n_out=6):
+    r = Request(prompt_len=len(prompt), max_new_tokens=n_out,
+                hidden_output_len=n_out, prompt_tokens=list(prompt))
+    inst.enqueue_prefill(r)
+    now = 0.0
+    for _ in range(100):
+        if r.done():
+            break
+        dur, done, _ = inst.run_iteration(now)
+        now += dur
+        for d in done:
+            inst.admit_decode(d)
+    assert r.done()
+    return r
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["fp", "int8"])
+def test_spill_round_trip_under_captured_graphs(cuda, kv_quant):
+    """The reference's spill case (a 64-token hot prefix, a 128-token cold
+    prompt that needs the 12-block pool, the hot prompt again) on the
+    card: the promoted blocks are bit-equal to what the pool held before
+    the eviction, and the graph captured for the hot request's decode
+    before the eviction replays after the promotion (no new capture)
+    with the tokens of a run whose prefix never left the pool."""
+    cfg = reduced_config("qwen2.5-3b")
+    params = _to_dev(tf.init_params(11, cfg, "cpu"), cuda)
+    rng = np.random.default_rng(22)
+    hot, cold = ([int(x) for x in rng.integers(1, cfg.vocab_size, size=n)]
+                 for n in (64, 128))
+    _, ctl_inst = _tier_instance(cfg, params, 64, kv_quant)
+    _serve_one(ctl_inst, hot)
+    never_evicted = _serve_one(ctl_inst, hot)
+
+    ex, inst = _tier_instance(cfg, params, 12, kv_quant, spill=16)
+    _serve_one(inst, hot)
+    keys = set(ex.graphs.graphs)
+    assert keys, "the hot request's decode captured nothing"
+    before = ex.export_prefix_blocks(hot)
+    _serve_one(inst, cold)
+    assert ex.prefix_cache_obj.spilled_blocks >= 4
+    captures, replays = ex.graphs.captures, ex.graphs.replays
+    c = _serve_one(inst, hot)
+    promoted = inst.spill_promoted_tokens // BS
+    assert promoted >= 3 and c.cached_prefix_len >= 48
+    after = ex.export_prefix_blocks(hot)
+    for name, t in before["paged_blocks"].items():
+        assert t.device.type == "cpu"
+        assert torch.equal(after["paged_blocks"][name][:, :promoted * BS],
+                           t[:, :promoted * BS]), name
+    assert ex.graphs.captures == captures
+    assert ex.graphs.replays > replays
+    assert set(ex.graphs.graphs) >= keys
+    assert c.output_tokens == never_evicted.output_tokens
+    ex.kv.check_invariants()
+
+
+def _http(port, method, path, body=None, timeout=120):
+    raw = b"" if body is None else json.dumps(body).encode()
+    s = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+    try:
+        s.sendall((f"{method} {path} HTTP/1.1\r\nHost: t\r\n"
+                   f"Content-Length: {len(raw)}\r\n"
+                   "Connection: close\r\n\r\n").encode() + raw)
+        data = b""
+        while chunk := s.recv(65536):
+            data += chunk
+    finally:
+        s.close()
+    head, _, payload = data.partition(b"\r\n\r\n")
+    return int(head.split(b" ", 2)[1]), payload
+
+
+def _sse_text(payload):
+    body, rest = b"", payload
+    while rest:
+        size, _, rest = rest.partition(b"\r\n")
+        n = int(size, 16)
+        if n == 0:
+            break
+        body += rest[:n]
+        rest = rest[n + 2:]
+    text, done = "", False
+    for ev in body.split(b"\n\n"):
+        if ev == b"data: [DONE]":
+            done = True
+        elif ev.startswith(b"data: "):
+            text += json.loads(ev[len(b"data: "):])["choices"][0]["text"]
+    return text, done
+
+
+def test_capture_while_the_http_thread_serves_metrics(cuda):
+    """The front end over a live loop on the card with no graph captured
+    yet: its decode buckets are captured on the engine thread while
+    clients stream and another thread scrapes ``/metrics`` without
+    pause, and every stream carries its request's detokenised tokens."""
+    from repro_torch.core.latency import SLO
+    from repro_torch.core.policies import Sliders
+    from repro_torch.frontend import (ByteTokenizer, FrontendConfig,
+                                      FrontendServer)
+    from repro_torch.serving import ServingLoop, WallClock
+    from repro_torch.sim.simulator import ServingConfig, build_cluster
+    cfg = reduced_config("qwen2.5-3b")
+    params = _to_dev(tf.init_params(12, cfg, "cpu"), cuda)
+    slo = SLO(ttft=5.0, tpot=0.5)
+    sc = ServingConfig(model="qwen2.5-3b", tp=1, policy="taichi",
+                       sliders=Sliders(n_p=1, n_d=1, s_p=64, s_d=32),
+                       hbm_blocks=512)
+    cluster = build_cluster(
+        sc, slo, async_exec=True,
+        executor_factory=lambda: TorchExecutor(cfg, params, n_slots=8,
+                                               max_seq=512, device="cuda"))
+    cluster.set_horizon(4)
+    loop = ServingLoop(cluster, slo, clock=WallClock(), pace=True)
+    srv = FrontendServer(loop, FrontendConfig(port=0, tok_workers=1))
+    server = threading.Thread(target=srv.run, daemon=True)
+    server.start()
+    stop, scrapes, out = threading.Event(), [], {}
+
+    def scrape():
+        while not stop.is_set():
+            scrapes.append(_http(srv.port, "GET", "/metrics")[0])
+
+    def client(i):
+        out[i] = _http(srv.port, "POST", "/v1/completions",
+                       {"prompt": f"card client {i}", "max_tokens": 12,
+                        "stream": True})
+
+    try:
+        assert srv.started.wait(timeout=120)
+        scraper = threading.Thread(target=scrape, daemon=True)
+        scraper.start()
+        clients = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(4)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=120)
+        stop.set()
+        scraper.join(timeout=120)
+    finally:
+        stop.set()
+        srv.shutdown()
+        server.join(timeout=120)
+    assert not server.is_alive()
+    assert scrapes and set(scrapes) == {200}
+    assert cluster.exec_errors == 0, cluster.last_exec_error
+    assert sum(i.executor.graphs.captures for i in cluster.instances) > 0
+    by_prompt = {tuple(r.prompt_tokens): r for r in loop.requests}
+    for i in range(4):
+        status, payload = out[i]
+        text, done = _sse_text(payload)
+        assert status == 200 and done
+        r = by_prompt[tuple(ByteTokenizer.encode(f"card client {i}"))]
+        assert len(r.output_tokens) == 12
+        assert text == ByteTokenizer.decode(r.output_tokens)
+
+
+def test_serve_refuses_without_a_card_unless_given_the_cpu(cuda):
+    """``--serve`` with the card hidden exits saying there is no CUDA
+    device; with ``--device cpu`` it serves on the CPU."""
+    import pathlib
+    import signal
+    import subprocess
+    import sys
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    env = {**os.environ, "PYTHONPATH": src, "CUDA_VISIBLE_DEVICES": ""}
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--engine",
+           "live", "--serve", "127.0.0.1:0", "--arch", "smollm-135m",
+           "--reduced", "--tok-workers", "0"]
+    refused = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                             timeout=120)
+    assert refused.returncode != 0
+    assert "no CUDA device" in refused.stderr
+    proc = subprocess.Popen(cmd + ["--device", "cpu"], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        line = ""
+        for line in proc.stdout:
+            if line.startswith("serving "):
+                break
+        assert line.startswith("serving ") and " on cpu " in line, line
+        port = int(line.split("http://127.0.0.1:")[1].split()[0])
+        status, payload = _http(port, "POST", "/v1/completions",
+                                {"prompt": "hi", "max_tokens": 4,
+                                 "stream": True})
+        assert status == 200 and _sse_text(payload)[1]
+        proc.send_signal(signal.SIGINT)
+        proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=120)
+    assert proc.returncode == 0

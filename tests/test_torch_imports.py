@@ -41,7 +41,30 @@ def test_no_reference_or_jax_import(path):
 def test_port_has_files_to_check():
     names = {p.name for p in _port_files()}
     assert {"engine.py", "graphs.py", "attention.py", "cluster.py",
-            "server.py", "admission.py", "chip_smoke.py"} <= names
+            "server.py", "admission.py", "chip_smoke.py", "gateway.py",
+            "http.py", "pipeline.py", "protocol.py", "tokenizer.py"} <= names
+
+
+#: what a front-end tokenizer worker imports (the package, the frontend
+#: package it passes through, and the modules it runs): none loads torch
+TORCH_FREE = ["repro_torch", "repro_torch.frontend",
+              "repro_torch.frontend.pipeline",
+              "repro_torch.frontend.protocol",
+              "repro_torch.frontend.tokenizer",
+              "repro_torch.frontend.admission"]
+
+
+@pytest.mark.parametrize("mod", TORCH_FREE)
+def test_module_loads_no_torch(mod):
+    code = ("import importlib, sys\n"
+            f"importlib.import_module({mod!r})\n"
+            "print(sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('torch', 'numpy')))\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={"PYTHONPATH": str(PORT.parent), "PATH": ""}, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]"
 
 
 def test_port_imports_without_jax_or_toolchain():
@@ -117,6 +140,8 @@ CARRIED_OVER = [
     "sim/workload.py", "serving/tracing.py", "sim/simulator.py",
     "configs/registry.py", "configs/__init__.py",
     "serving/metrics.py", "serving/controller.py",
+    "frontend/tokenizer.py", "frontend/protocol.py",
+    "frontend/http.py", "frontend/gateway.py",
 ]
 
 
