@@ -10,7 +10,8 @@ printing one JSON line; any failure raises and the process exits non-zero
 (nothing falls back to the CPU or to a kernel's plain version):
 
   env            torch / CUDA versions, the card's name and power limit
-  build          builds the kernel library, seconds taken
+  build          builds the kernel library, seconds taken; registers and
+                 spill bytes of the head-dim-256 instantiations (ptxas)
   kernels        the two paged kernels against their plain PyTorch
                  versions on the card, at smollm-135m's and qwen2.5-3b's
                  shapes, fp and int8 pools, the decode at the serve
@@ -49,10 +50,11 @@ printing one JSON line; any failure raises and the process exits non-zero
                  its graph's replay against the step run without a graph
                  from the same pool, tokens and KV bit for bit
   kernels_dense  the dense decode and dense chunked-prefill kernels
-                 against their plain versions, at smollm-135m's and
-                 zamba2-7b's attention shapes (zamba2-7b's in bf16 and
-                 float32; its bf16 prefill also at the D-heavy instance's
-                 256-token chunk)
+                 against their plain versions, at smollm-135m's,
+                 zamba2-7b's, gemma3-1b's (head dim 256) and
+                 granite-moe-3b-a800m's attention shapes (all but
+                 smollm-135m's in bf16 and float32; the bf16 prefill also
+                 at the D-heavy instance's 256-token chunk)
   kernels_ssd    the SSD-scan kernel against its plain version: one slot's
                  1024-token prefill at zamba2-7b's and mamba2-1.3b's widths
                  in float32, and zamba2-7b's served prefills in bf16 (887
@@ -69,6 +71,18 @@ printing one JSON line; any failure raises and the process exits non-zero
                  kernel time over those prefills (``scan_ms_served``)
   graphs_dense   zamba2-7b's full-slot-batch decode graph against the
                  step run without it, tokens, KV and recurrent state
+  model_gemma3, params_gemma3, serve_gemma3, graphs_dense
+                 the same for gemma3-1b (sliding-window ring layers and
+                 head-dim-256 global layers): 12 layers at full width
+                 through the kernels against the plain versions; 16
+                 requests with prompts to 3072 tokens on two 8-slot
+                 instances at max_seq 4096, full width and depth, first
+                 tokens held against their replays (the cache-free
+                 forward reported beside); its decode graph
+  model_moe, params_moe, serve_moe, graphs_dense
+                 the same for granite-moe-3b-a800m (40 experts top-8,
+                 capacity shared by every row of a decode): 8 layers, then
+                 full depth, prompts to 2048 tokens
 
 ``python3 chip_smoke.py --scan-only [SERVED]`` runs only the build and
 ``kernels_ssd`` and, given a file holding an earlier run's
@@ -76,8 +90,8 @@ printing one JSON line; any failure raises and the process exits non-zero
 
 Then one line ``{"kernels": [...]}`` with, for every kernel of the port,
 its launches on the paths that run it (``live``, ``frontend`` and
-``tiers`` for the paged kernels, ``serve_zamba2`` for the dense ones;
-``launches_by_path`` splits them), its error against the plain
+``tiers`` for the paged kernels, ``serve_zamba2``, ``serve_gemma3`` and
+``serve_moe`` for the dense ones; ``launches_by_path`` splits them), its error against the plain
 version and its time beside the plain version's, the card's bound and one
 library call; the card's name and power limit as ``nvidia-smi`` prints
 them; and last ``{"ok": true, "device": {...}}``.
@@ -90,6 +104,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -162,6 +177,14 @@ DENSE_SHAPES = [   # (name, Hq, Hkv, D, q and cache dtype); zamba2-7b's
     (ZAMBA, 32, 32, 112, torch.float32),
     (ZAMBA, 32, 32, 112, torch.bfloat16),
 ]
+GEMMA = "gemma3-1b"
+MOE = "granite-moe-3b-a800m"
+#: max_seq of the two dense families' caches (serve_gemma3's and
+#: serve_moe's): gemma3-1b's 1024-token ring wraps well inside it
+FAMILY_S = 4096
+FAMILY_SHAPES = [   # gemma3-1b's global layers (head dim 256) and granite's
+    (GEMMA, 4, 1, 256, torch.bfloat16), (GEMMA, 4, 1, 256, torch.float32),
+    (MOE, 24, 8, 64, torch.bfloat16), (MOE, 24, 8, 64, torch.float32)]
 # the scan: float32 sums over a chunk in another order and exp of another
 # library (the reference's kernel tests hold it to the same bound)
 SSD_TOL = 2e-3
@@ -1362,18 +1385,51 @@ def check_paged_graph(cfg, params, K=8):
     return out
 
 
-def check_dense_graph(cfg, params):
-    """zamba2-7b's full-slot-batch dense decode graph (4 slots, one of
-    them idle)."""
-    ex, reqs = decoding_executor(cfg, params, 4, DENSE_S, [300, 700, 129],
-                                 1024)
+def check_dense_graph(cfg, params, max_seq, lengths):
+    """A dense family's full-slot-batch decode graph (4 slots, one of them
+    idle) at full width."""
+    ex, reqs = decoding_executor(cfg, params, 4, max_seq, lengths, 1024)
     active = ex._decode_mask(reqs)
     out = captured_vs_uncaptured(
         ex, ("dense", 1), lambda *a: (ex._decode_fused(*a),),
         (ex.last_token[:, None], ex.positions, active))
+    out["model"] = cfg.name
     del ex
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def ptxas_d256():
+    """What ptxas reported (``-Xptxas -v``, the build's ``nvcc.log``) for
+    every head-dim-256 instantiation of the dense kernels: registers a
+    thread and spill bytes, by kernel, query and cache types, and the
+    FMA body's padded group (``gm``)."""
+    out, cur = [], None
+    for line in (build.build_dir() / "nvcc.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '_ZN5paged\d+(\w+?_kernel)"
+                      r"I(\w+?)Li256E(?:Li(\d+)E)?", line)
+        if m:
+            types = re.findall(r"13__nv_bfloat16|S1_|f", m.group(2))
+            names = []
+            for t in types:
+                names.append(names[0] if t == "S1_" else
+                             "bf16" if t.startswith("13") else "f32")
+            cur = {"kernel": m.group(1), "types": names}
+            if m.group(3):
+                cur["gm"] = int(m.group(3))
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            cur = None
     return out
 
 
@@ -1391,19 +1447,19 @@ def phase_graphs(name, check, *args):
 # the dense kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def make_dense_kv(seed, B, hkv, d, dtype):
+def make_dense_kv(seed, B, hkv, d, dtype, S):
     """A layer's [B, S, Hkv, D] dense cache pair, as the model holds it."""
     g = torch.Generator(device=DEV)
     g.manual_seed(seed)
-    k = torch.randn((B, DENSE_S, hkv, d), device=DEV, generator=g)
-    v = torch.randn((B, DENSE_S, hkv, d), device=DEV, generator=g)
+    k = torch.randn((B, S, hkv, d), device=DEV, generator=g)
+    v = torch.randn((B, S, hkv, d), device=DEV, generator=g)
     return k.to(dtype), v.to(dtype)
 
 
-def check_dense_decode(shape, lengths):
+def check_dense_decode(shape, lengths, S=DENSE_S):
     shape_name, hq, hkv, d, dtype = shape
     B = len(lengths)
-    k, v = make_dense_kv(11, B, hkv, d, dtype)
+    k, v = make_dense_kv(11, B, hkv, d, dtype, S)
     g = torch.Generator(device=DEV)
     g.manual_seed(12)
     q = torch.randn((B, hq, d), device=DEV, generator=g).to(dtype)
@@ -1421,15 +1477,15 @@ def check_dense_decode(shape, lengths):
     del ref
     # the library call: one SDPA over the same dense cache with a key mask
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    mask = (torch.arange(DENSE_S, device=DEV)[None, :]
+    mask = (torch.arange(S, device=DEV)[None, :]
             < ln[:, None])[:, None, None, :]
     lib = lambda: torch.nn.functional.scaled_dot_product_attention(
         q[:, :, None, :], kt, vt, attn_mask=mask, enable_gqa=True)
-    keys = sum(min(n, DENSE_S) for n in lengths)
+    keys = sum(min(n, S) for n in lengths)
     nbytes = (2 * keys * hkv * d * k.element_size()
               + 2 * q.numel() * q.element_size() + 4 * B)
     return {"kernel": "decode_attention", "shape": shape_name,
-            "dtype": str(dtype).split(".")[1], "B": B, "S": DENSE_S,
+            "dtype": str(dtype).split(".")[1], "B": B, "S": S,
             "max_ctx": max(lengths), "max_abs_err": err, "tol": TOL[dtype],
             "plain_max_abs": ref_max,
             "ms": time_ms(run), "plain_ms": time_ms(plain),
@@ -1437,9 +1493,9 @@ def check_dense_decode(shape, lengths):
             **bound(nbytes, 4.0 * hq * d * keys, dtype)}
 
 
-def check_dense_prefill(shape, B, tq, prefix):
+def check_dense_prefill(shape, B, tq, prefix, S=DENSE_S):
     shape_name, hq, hkv, d, dtype = shape
-    k, v = make_dense_kv(13, B, hkv, d, dtype)
+    k, v = make_dense_kv(13, B, hkv, d, dtype, S)
     g = torch.Generator(device=DEV)
     g.manual_seed(14)
     q = torch.randn((B, tq, hq, d), device=DEV, generator=g).to(dtype)
@@ -1456,7 +1512,7 @@ def check_dense_prefill(shape, B, tq, prefix):
     ref_max = ref.float().abs().max().item()
     del ref
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    kpos = torch.arange(DENSE_S, device=DEV)[None, :]
+    kpos = torch.arange(S, device=DEV)[None, :]
     qpos = prefix + torch.arange(tq, device=DEV)[:, None]
     mask = ((kpos <= qpos) & (kpos < prefix + tq))[None, None]
     qt = q.transpose(1, 2)
@@ -1469,7 +1525,7 @@ def check_dense_prefill(shape, B, tq, prefix):
               + 2 * q.numel() * q.element_size() + 4)
     return {"kernel": "chunked_prefill_attention", "shape": shape_name,
             "dtype": str(dtype).split(".")[1], "B": B, "Tq": tq,
-            "prefix": prefix, "S": DENSE_S, "max_abs_err": err,
+            "prefix": prefix, "S": S, "max_abs_err": err,
             "tol": TOL[dtype], "plain_max_abs": ref_max,
             "ms": time_ms(run), "plain_ms": time_ms(plain),
             "library_ms": time_ms(lib),
@@ -1563,10 +1619,13 @@ def phase_kernels_dense():
     """Decode: 8 rows (the serving slots) with contexts to 2048 on a
     2048-slot cache; prefill: one slot's 1024-token chunk at offset 1024
     (the P-heavy instance's chunk on the slot path) and, for zamba2-7b in
-    bf16, a 256-token chunk at offset 768 (the D-heavy one's).  Then the
-    scan (``phase_kernels_ssd``): one slot's 1024-token prefill at
-    zamba2-7b's and mamba2-1.3b's widths in float32, and served prefills
-    of zamba2-7b in bf16."""
+    bf16, a 256-token chunk at offset 768 (the D-heavy one's).  The same
+    at gemma3-1b's (4 / 1 / 256) and granite-moe-3b-a800m's (24 / 8 / 64)
+    shapes on their 4096-slot caches, decode to 4096 keys, in bf16 and
+    float32 (the 256-token chunk in bf16 only).  Then the scan
+    (``phase_kernels_ssd``): one slot's 1024-token prefill at zamba2-7b's
+    and mamba2-1.3b's widths in float32, and served prefills of zamba2-7b
+    in bf16."""
     lengths = [2048, 1, 700, 1536, 33, 1024, 2000, 129]
     cases = []
     for shape in DENSE_SHAPES:
@@ -1574,6 +1633,12 @@ def phase_kernels_dense():
         cases.append(check_dense_prefill(shape, 1, 1024, 1024))
     # the D-heavy instance's 256-token chunk, at offset 768
     cases.append(check_dense_prefill(DENSE_SHAPES[-1], 1, 256, 768))
+    long_lengths = [4096, 1, 1400, 3072, 33, 2048, 4000, 129]
+    for shape in FAMILY_SHAPES:
+        cases.append(check_dense_decode(shape, long_lengths, FAMILY_S))
+        cases.append(check_dense_prefill(shape, 1, 1024, 1024, FAMILY_S))
+        if shape[-1] == torch.bfloat16:
+            cases.append(check_dense_prefill(shape, 1, 256, 768, FAMILY_S))
     emit("kernels_dense", cases=cases)
     cases += phase_kernels_ssd()
     torch.cuda.empty_cache()
@@ -1581,33 +1646,34 @@ def phase_kernels_dense():
 
 
 # ---------------------------------------------------------------------------
-# zamba2-7b at full width: kernels vs plain versions
+# the dense families at full width: kernels vs plain versions
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def phase_model_zamba2():
-    """zamba2-7b at full width, cut to its first 12 layers (two of its
-    shared-attention layers), random weights from a seed.  Over a dense
-    cache of 4 slots: slot 0 prefills a 1024-token chunk, slot 1 a
-    215-token chunk and then a 300-token one (scan chunks of 256, 215 and
-    4), then one decode over all four slots with slot 3 masked out.
-    Three ways, as ``phase_model``: bf16 through the kernels, bf16 through
-    the plain versions, float32 through both; the same tolerances."""
-    cfg = dataclasses.replace(get_config(ZAMBA), num_layers=12)
+def check_model_dense(phase, cfg, chunks, pos1, active, max_seq):
+    """The dense path at full width, random weights from a seed, over a
+    dense cache of 4 slots: the slot prefills ``chunks`` ((slot, start,
+    n), each slot's tokens drawn from a seed), then one decode over all
+    four slots at ``pos1`` under the row mask ``active``.  Three ways, as
+    ``phase_model``: bf16 through the kernels, bf16 through the plain
+    versions, float32 through both; the same tolerances.  Every kernel
+    runs the launches the layers call for, and none on the plain path."""
     params = tf.init_params(1, cfg, device=DEV)
     rng = np.random.default_rng(21)
+    n_tok = max(st + n for _, st, n in chunks)
     tokens = torch.from_numpy(rng.integers(
-        1, cfg.vocab_size, size=(4, 1024)).astype(np.int64)).to(DEV)
-    chunks = [(0, 0, 1024), (1, 0, 215), (1, 215, 300)]  # slot, start, n
-    pos1 = torch.tensor([[1024], [515], [0], [0]], device=DEV)
-    active = torch.tensor([1, 1, 1, 0], dtype=torch.int32, device=DEV)
-    n_attn = cfg.attn_layer_count()
-    want = {"decode_attention": n_attn,
-            "chunked_prefill_attention": len(chunks) * n_attn,
-            "ssd_scan": len(chunks) * cfg.num_layers}
+        1, cfg.vocab_size, size=(4, n_tok)).astype(np.int64)).to(DEV)
+    pos1 = torch.tensor(pos1, device=DEV)[:, None]
+    active = torch.tensor(active, dtype=torch.int32, device=DEV)
+    types = tf.layer_types(cfg)
+    n_kv = sum(b in tf.KV_BLOCKS for b in types)
+    n_state = sum(b in tf.STATE_BLOCKS for b in types)
+    want = {"decode_attention": n_kv,
+            "chunked_prefill_attention": len(chunks) * n_kv,
+            "ssd_scan": len(chunks) * n_state}
 
     def run(prm, dtype, plain):
-        cache = tf.init_cache(cfg, 4, DENSE_S, dtype=dtype, device=DEV)
+        cache = tf.init_cache(cfg, 4, max_seq, dtype=dtype, device=DEV)
         n0 = launch_counts(DENSE_KERNELS)
         outs = []
         with plain_kernels() if plain else contextlib.nullcontext():
@@ -1621,7 +1687,7 @@ def phase_model_zamba2():
                 outs.append(lg[0].float())
             dec, _, _ = tf.forward(prm, cfg, tokens[:, :1], pos1, cache,
                                    valid_len=active)
-            outs.append(dec[:3, 0].float())
+            outs.append(dec[active.bool(), 0].float())
         torch.cuda.synchronize()
         n1 = launch_counts(DENSE_KERNELS)
         got = {k: n1[k] - n0[k] for k in n0}
@@ -1646,20 +1712,53 @@ def phase_model_zamba2():
     err_f32 = scaled_err(f32_kernel, f32_plain)
     err_kernel = scaled_err(bf_kernel, f32_plain)
     err_plain = scaled_err(bf_plain, f32_plain)
-    assert err_f32 <= MODEL_TOL_F32, err_f32
-    assert err_kernel <= 1.5 * err_plain + MODEL_TOL_BF16_SLACK, \
-        (err_kernel, err_plain)
     agree = torch.cat([(a.argmax(-1) == b.argmax(-1)).float()
                        for a, b in zip(bf_kernel, f32_plain)])
-    emit("model_zamba2", model=cfg.name, layers=cfg.num_layers,
-         layers_registered=get_config(ZAMBA).num_layers,
-         attention_layers=n_attn, launches=want,
+    emit(phase, model=cfg.name, layers=cfg.num_layers,
+         layers_registered=get_config(cfg.name).num_layers,
+         attention_layers=n_kv, launches=want,
          f32_kernel_vs_plain=err_f32, f32_tol=MODEL_TOL_F32,
          bf16_kernel_vs_f32=err_kernel, bf16_plain_vs_f32=err_plain,
          bf16_kernel_vs_bf16_plain=scaled_err(bf_kernel, bf_plain),
          bf16_greedy_agreement_with_f32=agree.mean().item())
+    assert err_f32 <= MODEL_TOL_F32, err_f32
+    assert err_kernel <= 1.5 * err_plain + MODEL_TOL_BF16_SLACK, \
+        (err_kernel, err_plain)
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def phase_model_zamba2():
+    """zamba2-7b, cut to its first 12 layers (two of its shared-attention
+    layers): slot 0 prefills a 1024-token chunk, slot 1 a 215-token chunk
+    and then a 300-token one (scan chunks of 256, 215 and 4), then one
+    decode over all four slots with slot 3 masked out."""
+    check_model_dense(
+        "model_zamba2", dataclasses.replace(get_config(ZAMBA), num_layers=12),
+        [(0, 0, 1024), (1, 0, 215), (1, 215, 300)],
+        [1024, 515, 0, 0], [1, 1, 1, 0], DENSE_S)
+
+
+def phase_model_gemma3():
+    """gemma3-1b, cut to its first 12 layers (two periods: 10 ring layers
+    of 1024 slots, 2 global ones at head dim 256): slot 0 prefills a
+    1024-token chunk, slot 1 a 700-token chunk and then a 600-token one,
+    which wraps its rings and runs kernel 4 at prefix 700; then one decode
+    over all four slots with slot 3 masked out."""
+    check_model_dense(
+        "model_gemma3", dataclasses.replace(get_config(GEMMA), num_layers=12),
+        [(0, 0, 1024), (1, 0, 700), (1, 700, 600)],
+        [1024, 1300, 0, 0], [1, 1, 1, 0], FAMILY_S)
+
+
+def phase_model_moe():
+    """granite-moe-3b-a800m, cut to its first 8 layers (40 experts top-8
+    each): the chunks of ``phase_model_zamba2``, then the masked decode,
+    whose four rows share the experts' capacity."""
+    check_model_dense(
+        "model_moe", dataclasses.replace(get_config(MOE), num_layers=8),
+        [(0, 0, 1024), (1, 0, 215), (1, 215, 300)],
+        [1024, 515, 0, 0], [1, 1, 1, 0], FAMILY_S)
 
 
 # ---------------------------------------------------------------------------
@@ -1681,11 +1780,12 @@ def served_chunks(log, reqs):
 
 
 @torch.no_grad()
-def replay_prefill(cfg, params, prompt, chunks):
+def replay_prefill(cfg, params, prompt, chunks, max_seq, dtype=None):
     """The prompt prefilled again in the served chunks, as the executor's
-    slot prefill runs them, on a fresh one-slot dense cache.  Returns the
-    last position's logits (float32)."""
-    cache = tf.init_cache(cfg, 1, DENSE_S, device=DEV)
+    slot prefill runs them, on a fresh one-slot dense cache (of ``dtype``,
+    default the model's).  Returns the last position's logits
+    (float32)."""
+    cache = tf.init_cache(cfg, 1, max_seq, dtype=dtype, device=DEV)
     row = {name: leaf[:, 0:1] for name, leaf in cache.items()}
     at = 0
     for take in chunks:
@@ -1707,66 +1807,149 @@ def cache_free_logits(cfg, params, prompt):
     return (hidden[0, -1] @ params["lm_head"]).float()
 
 
-def phase_serve_zamba2(cfg, params, n_requests=16):
-    """Two 8-slot dense instances at ``max_seq`` 2048 sharing one params
-    dict, 16 requests with prompts of 128-1536 tokens (the D-heavy
-    instance prefills them in several 256-token chunks beside its
-    decodes) and 16-48 output tokens.
+def serve_dense(cfg, params, wl, qps, max_seq, kernels, cache_free=True,
+                f32_oracle=False, n_requests=16, n_slots=8):
+    """The dense main path at full width: ``build_cluster`` under
+    ``TaiChiPolicy`` with one P-heavy (chunk 1024) and one D-heavy (chunk
+    256) instance, each a dense ``TorchExecutor`` of ``n_slots`` rows of
+    ``max_seq``, sharing one params dict, serving ``n_requests`` of ``wl``
+    arriving at ``qps``.  The launch counts of ``kernels`` are set to 0
+    just before the run and read just after.
 
     Afterwards, each request's first token is held against a replay of
     its prompt in the chunks it was served in, on a fresh cache, through
     the kernels: equal, so scheduling beside decodes, row masks and
     migration changed no state the first token reads.  The same replay
-    through the plain versions and a cache-free forward both ways are
-    reported beside it: bf16 chunked and cache-free forwards round
-    differently, and the plain versions show how much of that is the
-    kernels'."""
+    through the plain versions and (``cache_free``) a cache-free forward
+    both ways are reported beside it: bf16 chunked and cache-free forwards
+    round differently, and the plain versions show how much of that is
+    the kernels'.  With ``f32_oracle`` the chunked replay is also run in
+    float32 through the kernels, against the cache-free forward in
+    float32: the greedy tokens must agree for every request (the
+    cache-free mask is an oracle of what the chunks' caches hold).
+    Returns (fields of the phase's line, launches, the served chunks, the
+    requests)."""
     log = []
-    n_slots = 8
-    sc = ServingConfig(model=ZAMBA, tp=1, policy="taichi",
+    sc = ServingConfig(model=cfg.name, tp=1, policy="taichi",
                        sliders=Sliders(n_p=1, n_d=1, s_p=1024, s_d=256),
-                       hbm_blocks=n_slots * DENSE_S // BLOCK,
+                       hbm_blocks=n_slots * max_seq // BLOCK,
                        block_size=BLOCK)
     factory = lambda: TimedExecutor(cfg, params, n_slots=n_slots,
-                                    max_seq=DENSE_S, device=DEV, log=log)
+                                    max_seq=max_seq, device=DEV, log=log)
     slo = SLO(ttft=10.0, tpot=0.5)
     cluster = build_cluster(sc, slo, seed=0, executor_factory=factory)
     cluster._on_exec_error = raise_exec_error
-    wl = WorkloadSpec("zamba2-smoke",
-                      LengthDist(mu=6.5, sigma=0.7, lo=128, hi=1536),
-                      LengthDist(mu=3.4, sigma=0.4, lo=16, hi=48),
-                      tokenized=True, vocab_size=cfg.vocab_size)
-    reqs = wl.sample_requests(n_requests, qps=4.0, seed=0)
+    reqs = wl.sample_requests(n_requests, qps=qps, seed=0)
     executors = [inst.executor for inst in cluster.policy.instances]
     assert all(not ex.paged for ex in executors)
     cache_bytes = sum(ex.cache_bytes() for ex in executors)
 
     # counts to 0 just before the main path, read just after
-    reset_counts(DENSE_KERNELS)
+    reset_counts(kernels)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cluster.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = launch_counts(DENSE_KERNELS)
+    launches = launch_counts(kernels)
     peak = torch.cuda.max_memory_allocated()
 
     check_finished(cfg, reqs, cluster)
-    assert all(n > 0 for n in launches.values()), launches
-    # the scan and the chunked-prefill kernel run together, on every slot
-    # prefill of more than one token: 81 scans to 13 attention reads
-    n_attn = cfg.attn_layer_count()
-    assert launches["ssd_scan"] * n_attn \
-        == launches["chunked_prefill_attention"] * cfg.num_layers, launches
     iterations = sum(inst.iterations for inst in cluster.policy.instances)
     readbacks = sum(ex.host_readbacks for ex in executors)
     assert 0 < readbacks <= iterations, (readbacks, iterations)
     out_tokens = sum(len(r.output_tokens) for r in reqs)
     in_tokens = sum(r.prompt_len for r in reqs)
     derates = derive_derates(log, cluster.cost)
-
     chunks = served_chunks(log, reqs)
+    first = {r.rid: r.output_tokens[0] for r in reqs}
+    agree = {k: 0 for k in ("cache_free", "replay", "plain_replay",
+                            "plain_replay_vs_plain_cache_free")}
+    replay_err = 0.0
+    for r in reqs:
+        kernel = replay_prefill(cfg, params, r.prompt_tokens, chunks[r.rid],
+                                max_seq)
+        with plain_kernels():
+            plain = replay_prefill(cfg, params, r.prompt_tokens,
+                                   chunks[r.rid], max_seq)
+        agree["replay"] += int(int(kernel.argmax()) == first[r.rid])
+        agree["plain_replay"] += int(int(plain.argmax()) == first[r.rid])
+        replay_err = max(replay_err, (kernel - plain).abs().max().item()
+                         / max(plain.abs().max().item(), 1.0))
+        if cache_free:
+            kernel_cf = int(cache_free_logits(cfg, params,
+                                              r.prompt_tokens).argmax())
+            agree["cache_free"] += int(kernel_cf == first[r.rid])
+            with plain_kernels():
+                plain_cf = int(cache_free_logits(cfg, params,
+                                                 r.prompt_tokens).argmax())
+            agree["plain_replay_vs_plain_cache_free"] += int(
+                int(plain.argmax()) == plain_cf)
+    f32 = None
+    if f32_oracle:
+        params32 = _float_tree(params)
+        f32 = {"greedy_equal": 0, "max_scaled_err": 0.0}
+        for r in reqs:
+            rep32 = replay_prefill(cfg, params32, r.prompt_tokens,
+                                   chunks[r.rid], max_seq, torch.float32)
+            cf32 = cache_free_logits(cfg, params32, r.prompt_tokens)
+            f32["greedy_equal"] += int(int(rep32.argmax())
+                                       == int(cf32.argmax()))
+            f32["max_scaled_err"] = max(
+                f32["max_scaled_err"], (rep32 - cf32).abs().max().item()
+                / max(cf32.abs().max().item(), 1.0))
+        del params32
+        assert f32["greedy_equal"] == len(reqs), f32
+    n = len(reqs)
+    fields = dict(
+        model=cfg.name, policy="taichi", requests=n,
+        slots_per_instance=n_slots, max_seq=max_seq,
+        prompt_tokens=in_tokens, output_tokens=out_tokens,
+        prompt_lengths=sorted(r.prompt_len for r in reqs),
+        wall_s=wall, output_tokens_per_s=out_tokens / wall,
+        total_tokens_per_s=(in_tokens + out_tokens) / wall,
+        iterations=iterations,
+        iterations_by_kind={k: derates[k] for k in (
+            "prefill_only_iterations", "decode_only_iterations",
+            "mixed_iterations")},
+        host_readbacks=readbacks,
+        host_syncs=sum(ex.host_syncs for ex in executors),
+        transfers=cluster.transfer_count, launches=launches,
+        exec_errors=cluster.exec_errors, cache_bytes=cache_bytes,
+        peak_memory_bytes=peak, graphs=graph_stats(executors, log),
+        first_token_equals_replay=f"{agree['replay']}/{n}",
+        first_token_agrees_with_plain_replay=(
+            f"{agree['plain_replay']}/{n}"),
+        first_token_agrees_with_cache_free=(
+            f"{agree['cache_free']}/{n}" if cache_free else None),
+        plain_replay_agrees_with_plain_cache_free=(
+            f"{agree['plain_replay_vs_plain_cache_free']}/{n}"
+            if cache_free else None),
+        f32_replay_vs_f32_cache_free=f32,
+        replay_kernel_vs_plain_logits=replay_err, measured=derates)
+    return fields, launches, chunks, reqs
+
+
+def phase_serve_zamba2(cfg, params):
+    """zamba2-7b: two 8-slot instances at ``max_seq`` 2048, 16 requests
+    with prompts of 128-1536 tokens (the D-heavy instance prefills them in
+    several 256-token chunks beside its decodes) and 16-48 output tokens,
+    arriving at 4 a second.  Besides ``serve_dense``'s checks: every slot
+    prefill of more than one token scans once a layer, and the scan
+    kernel's time summed over the served prefills (``scan_ms_served``)."""
+    wl = WorkloadSpec("zamba2-smoke",
+                      LengthDist(mu=6.5, sigma=0.7, lo=128, hi=1536),
+                      LengthDist(mu=3.4, sigma=0.4, lo=16, hi=48),
+                      tokenized=True, vocab_size=cfg.vocab_size)
+    fields, launches, chunks, reqs = serve_dense(cfg, params, wl, 4.0,
+                                                 DENSE_S, DENSE_KERNELS)
+    assert all(n > 0 for n in launches.values()), launches
+    # the scan and the chunked-prefill kernel run together, on every slot
+    # prefill of more than one token: 81 scans to 13 attention reads
+    n_attn = cfg.attn_layer_count()
+    assert launches["ssd_scan"] * n_attn \
+        == launches["chunked_prefill_attention"] * cfg.num_layers, launches
     # every slot prefill of more than one token scans once a layer, at the
     # chunk the model's rule picks for its length
     served = collections.Counter(
@@ -1775,57 +1958,63 @@ def phase_serve_zamba2(cfg, params, n_requests=16):
     served = sorted([T, c, k] for (T, c), k in served.items())
     assert sum(k for _, _, k in served) * cfg.num_layers \
         == launches["ssd_scan"], (served, launches)
-    first = {r.rid: r.output_tokens[0] for r in reqs}
-    agree = {k: 0 for k in ("cache_free", "replay", "plain_replay",
-                            "plain_replay_vs_plain_cache_free")}
-    replay_err = 0.0
-    for r in reqs:
-        kernel_cf = int(cache_free_logits(cfg, params,
-                                          r.prompt_tokens).argmax())
-        agree["cache_free"] += int(kernel_cf == first[r.rid])
-        kernel = replay_prefill(cfg, params, r.prompt_tokens, chunks[r.rid])
-        with plain_kernels():
-            plain = replay_prefill(cfg, params, r.prompt_tokens,
-                                   chunks[r.rid])
-            plain_cf = int(cache_free_logits(cfg, params,
-                                             r.prompt_tokens).argmax())
-        agree["replay"] += int(int(kernel.argmax()) == first[r.rid])
-        agree["plain_replay"] += int(int(plain.argmax()) == first[r.rid])
-        agree["plain_replay_vs_plain_cache_free"] += int(
-            int(plain.argmax()) == plain_cf)
-        replay_err = max(replay_err, (kernel - plain).abs().max().item()
-                         / max(plain.abs().max().item(), 1.0))
     scan_ms, scan_per_t = served_scan_ms(
         served, cfg.num_layers, cfg.ssm_nheads, cfg.ssm_headdim,
         cfg.ssm_state)
-    emit("serve_zamba2", model=cfg.name, policy="taichi",
-         requests=len(reqs), slots_per_instance=n_slots, max_seq=DENSE_S,
-         prompt_tokens=in_tokens, output_tokens=out_tokens,
-         wall_s=wall, output_tokens_per_s=out_tokens / wall,
-         total_tokens_per_s=(in_tokens + out_tokens) / wall,
-         iterations=iterations,
-         iterations_by_kind={k: derates[k] for k in (
-             "prefill_only_iterations", "decode_only_iterations",
-             "mixed_iterations")},
-         host_readbacks=readbacks,
-         host_syncs=sum(ex.host_syncs for ex in executors),
-         transfers=cluster.transfer_count, launches=launches,
-         exec_errors=cluster.exec_errors, cache_bytes=cache_bytes,
-         peak_memory_bytes=peak, graphs=graph_stats(executors, log),
-         first_token_agrees_with_cache_free=(
-             f"{agree['cache_free']}/{len(reqs)}"),
-         first_token_equals_replay=f"{agree['replay']}/{len(reqs)}",
-         first_token_agrees_with_plain_replay=(
-             f"{agree['plain_replay']}/{len(reqs)}"),
-         plain_replay_agrees_with_plain_cache_free=(
-             f"{agree['plain_replay_vs_plain_cache_free']}/{len(reqs)}"),
-         replay_kernel_vs_plain_logits=replay_err,
-         served_prefills=served, scan_ms_served=scan_ms,
-         scan_ms_by_prefill=scan_per_t, measured=derates)
+    emit("serve_zamba2", **fields, served_prefills=served,
+         scan_ms_served=scan_ms, scan_ms_by_prefill=scan_per_t)
     # the served path against its own replay: the same kernels on the
     # same chunks, so only a fault around them could tell the two apart
-    assert agree["replay"] == len(reqs), agree
+    assert fields["first_token_equals_replay"] == f"{len(reqs)}/{len(reqs)}", \
+        fields["first_token_equals_replay"]
     return launches
+
+
+def phase_serve_family(name, cfg, params, wl, cache_free):
+    """gemma3-1b or granite-moe-3b-a800m: two 8-slot instances at
+    ``max_seq`` 4096, 16 requests arriving at 8 a second; only the two
+    dense attention kernels run (no scan), each of them at least once, and
+    every first token equals its replay's.  Where the cache-free forward
+    is an oracle (``cache_free``), it is reported beside the bf16 first
+    tokens and held against the float32 replays."""
+    fields, launches, chunks, reqs = serve_dense(
+        cfg, params, wl, 8.0, FAMILY_S, DENSE_KERNELS, cache_free=cache_free,
+        f32_oracle=cache_free)
+    longest = max(sum(c) for c in chunks.values())
+    emit(name, **fields, served_chunks=sorted(
+        collections.Counter(t for c in chunks.values() for t in c).items()),
+        longest_prompt=longest)
+    assert launches["decode_attention"] > 0 \
+        and launches["chunked_prefill_attention"] > 0 \
+        and launches["ssd_scan"] == 0, launches
+    assert fields["first_token_equals_replay"] == f"{len(reqs)}/{len(reqs)}", \
+        fields["first_token_equals_replay"]
+    return launches
+
+
+def phase_serve_gemma3(cfg, params):
+    """Prompts of 128-3072 tokens (four of the sixteen past 2048, so the
+    1024-slot rings wrap and kernel 4 runs at prefixes past 1024), 16-64
+    output tokens.  The cache-free forward, whose full causal windowed
+    mask is an oracle of the rings, is held against the float32 replay of
+    every prompt's served chunks, and reported beside each bf16 first
+    token."""
+    wl = WorkloadSpec("gemma3-smoke",
+                      LengthDist(mu=7.3, sigma=0.8, lo=128, hi=3072),
+                      LengthDist(mu=3.4, sigma=0.5, lo=16, hi=64),
+                      tokenized=True, vocab_size=cfg.vocab_size)
+    return phase_serve_family("serve_gemma3", cfg, params, wl, True)
+
+
+def phase_serve_moe(cfg, params):
+    """Prompts of 128-2048 tokens, 16-64 output tokens.  The cache-free
+    forward is no oracle here: an MoE layer's capacity follows T, so a
+    prompt routed whole drops other slots than its chunks do."""
+    wl = WorkloadSpec("moe-smoke",
+                      LengthDist(mu=6.7, sigma=0.7, lo=128, hi=2048),
+                      LengthDist(mu=3.4, sigma=0.5, lo=16, hi=64),
+                      tokenized=True, vocab_size=cfg.vocab_size)
+    return phase_serve_family("serve_moe", cfg, params, wl, False)
 
 
 # ---------------------------------------------------------------------------
@@ -1915,7 +2104,7 @@ def main(argv):
     build.load_library()
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=build.last_build_seconds,
-         sources=[p.name for p in build.sources()])
+         sources=[p.name for p in build.sources()], d256=ptxas_d256())
 
     cases = phase_kernels()
 
@@ -1958,7 +2147,35 @@ def main(argv):
     by_path["serve_zamba2"] = phase_serve_zamba2(zcfg, zparams)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_graphs("graphs_dense", check_dense_graph, zcfg, zparams)
+    phase_graphs("graphs_dense", check_dense_graph, zcfg, zparams, DENSE_S,
+                 [300, 700, 129])
+    # zamba2-7b's weights go before the next families load
+    del zparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for name, phase, model_phase, serve_phase, lengths in (
+            (GEMMA, "gemma3", phase_model_gemma3, phase_serve_gemma3,
+             [1500, 700, 129]),
+            (MOE, "moe", phase_model_moe, phase_serve_moe,
+             [300, 1500, 129])):
+        model_phase()
+        fcfg = get_config(name)
+        t0 = time.perf_counter()
+        fparams = tf.init_params(0, fcfg, device=DEV)
+        torch.cuda.synchronize()
+        emit(f"params_{phase}", model=fcfg.name, layers=fcfg.num_layers,
+             parameters=count_params(fparams),
+             device_bytes=torch.cuda.memory_allocated(),
+             seconds=time.perf_counter() - t0)
+        by_path[f"serve_{phase}"] = serve_phase(fcfg, fparams)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_graphs("graphs_dense", check_dense_graph, fcfg, fparams,
+                     FAMILY_S, lengths)
+        del fparams
+        gc.collect()
+        torch.cuda.empty_cache()
 
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels_line(cases, by_path)}), flush=True)

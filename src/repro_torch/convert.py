@@ -9,16 +9,18 @@ the blocks of pattern position ``pi`` of segment ``si`` over the segment's
 periods (``tree["segments"][si][pi]`` leaves are ``[n_periods, ...]``);
 the port holds one dict a layer, in execution order: segment, then
 period, then pattern position.  The hybrid family's ``shared_attn`` is one
-unstacked block.  The Mamba2 leaves the reference keeps in float32
-(``A_log``, ``dt_bias``, ``D``) stay float32 whatever the model's type.
+unstacked block.  The leaves the reference keeps in float32 (the Mamba2
+mixer's ``A_log``, ``dt_bias``, ``D`` and the MoE ``router``) stay float32
+whatever the model's type.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-#: Mamba2 mixer leaves that are float32 whatever the parameter type
-FLOAT32_LEAVES = ("A_log", "dt_bias", "D")
+#: leaves that are float32 whatever the parameter type: the Mamba2
+#: mixer's, and the MoE router
+FLOAT32_LEAVES = ("A_log", "dt_bias", "D", "router")
 
 
 def _to_tensor(a, device, dtype):

@@ -13,8 +13,9 @@ Three executor paths, as in the reference's ``JaxExecutor``:
   happens on the device, and only token ids cross the host boundary.
   Prefix reuse and migration are block-table pointer updates, and
   admission is bounded by blocks actually referenced.
-* **batched dense** (the families that cannot page — recurrent state —
-  and ``paged=False``): a slot-contiguous dense cache
+* **batched dense** (the families that cannot page — recurrent state,
+  sliding-window rings, capacity-dropping MoE — and ``paged=False``): a
+  slot-contiguous dense cache
   (``models.transformer.init_cache``); packed T-padded prefill where
   padding is safe, else exact-shape slot rows; one full-slot-batch decode.
   The dense decode, dense chunked-prefill and SSD-scan kernels carry it.
@@ -28,7 +29,10 @@ and keep their recurrent (conv / SSM) state exactly as it was.  The
 reference lets that decode advance the recurrent state of every slot, and
 so corrupts a recurrent row whose chunked prefill is part-way done when a
 decode runs beside it; the port follows the model's semantics (the
-cache-free forward) instead.
+cache-free forward) instead.  The unscheduled rows are still computed, as
+the reference computes them (their ``last_token`` at their ``positions``,
+reading their own key as if written): an MoE layer routes them, and they
+take their place in the experts' capacity as in the reference.
 
 A dense executor bounds admission by its rows: its ``allocator`` (a
 :class:`DenseRowAllocator`) grants at most one request a row, and a

@@ -35,11 +35,13 @@ def copy_prefix(cache: Dict[str, torch.Tensor], src_slot: int,
                 dst_slot: int, n_tokens: int):
     """Copy the first ``n_tokens`` KV columns of ``src_slot`` into
     ``dst_slot``, in place.  Only valid for full-cache attention families
-    (KV at position p depends only on tokens [0, p] — recurrent state
-    cannot be sliced at a token boundary)."""
+    (KV at position p depends only on tokens [0, p] — recurrent state and
+    a sliding window's ring buffer cannot be sliced at a token
+    boundary)."""
     if set(cache) - set(_KV_LEAVES):
-        raise ValueError("copy_prefix needs an attention-only cache: "
-                         "recurrent state has no token boundary")
+        raise ValueError("copy_prefix needs a full-cache attention-only "
+                         "cache: recurrent state and ring buffers have no "
+                         "token boundary")
     for leaf in cache.values():
         leaf[:, dst_slot, :n_tokens].copy_(leaf[:, src_slot, :n_tokens])
     return cache

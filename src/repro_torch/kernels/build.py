@@ -63,11 +63,17 @@ def find_nvcc() -> str:
         "CUDA kernels cannot be built on this machine")
 
 
+def build_dir() -> Path:
+    """Where this source tree's library and ``nvcc.log`` (with ptxas's
+    registers and spill bytes of every kernel, ``-Xptxas -v``) go."""
+    return build_root() / f"repro_torch_kernels-{source_hash()}"
+
+
 def build_library() -> Path:
     """Compile ``csrc/*.cu`` (one nvcc per source, in parallel), link them
     into ``libreprotorch_kernels.so`` and return its path."""
     global last_build_seconds
-    out_dir = build_root() / f"repro_torch_kernels-{source_hash()}"
+    out_dir = build_dir()
     lib = out_dir / "libreprotorch_kernels.so"
     if lib.exists():
         return lib

@@ -233,8 +233,8 @@ def chunked_prefill_attention(q, k, v, prefix):
     chunk of Tq tokens at absolute offset ``prefix`` (an int, or a
     one-element int tensor on q's device), attending over its row of k, v
     [B, S, Hkv, D] (read in place; slots < prefix + Tq valid, causal
-    within the chunk).  Head dims 64, 112 and 128, up to 16 query heads a
-    KV head, float32 or bfloat16.  Returns [B, Tq, Hq, D] in q's type.
+    within the chunk).  Head dims 64, 112, 128 and 256, up to 16 query
+    heads a KV head, float32 or bfloat16.  Returns [B, Tq, Hq, D] in q's type.
 
     A CUDA tensor launches the kernel (or raises); only a CPU tensor goes
     to the plain version."""

@@ -13,6 +13,7 @@
 // A bf16 query over a bf16 cache takes the tensor-core body (mma.sync,
 // cp.async tile ring), float32 on either side the f32 FMA body.  `prefix`
 // is read on the device, so the caller need not synchronise to learn it.
+// Head dims 64, 112, 128 and 256 (gemma3-1b).
 // Bound and design notes: prefill_kernel.cuh.
 
 #include "prefill_kernel.cuh"
@@ -34,6 +35,10 @@ int dispatch_dense_prefill_d(int D, const void* q, const void* k,
                                        stream);
   if (D == 128)
     return launch_prefill<QT, KT, 128>(q, k, v, nullptr, nullptr, prefix, 0,
+                                       nullptr, out, view, B, Tq, Hq, Hkv,
+                                       stream);
+  if (D == 256)
+    return launch_prefill<QT, KT, 256>(q, k, v, nullptr, nullptr, prefix, 0,
                                        nullptr, out, view, B, Tq, Hq, Hkv,
                                        stream);
   return -1;

@@ -8,7 +8,8 @@
 // through a DenseView: the cache is addressed in place through its
 // strides, where the Pallas wrapper transposes it to [B, Hkv, S, D] on
 // every call (381 MB a slot a layer at zamba2-7b's shape).  Lengths past S
-// are capped at S.  Bound and design notes: decode_kernel.cuh.
+// are capped at S.  Head dims 64, 112, 128 and 256 (gemma3-1b's global
+// layers).  Bound and design notes: decode_kernel.cuh.
 
 #include "decode_kernel.cuh"
 
@@ -20,6 +21,7 @@ int dispatch_dense_decode_d(int D, const DecodeArgs& a, const DenseView& view,
   if (D == 64) return launch_decode<QT, KT, 64>(a, view, stream);
   if (D == 112) return launch_decode<QT, KT, 112>(a, view, stream);
   if (D == 128) return launch_decode<QT, KT, 128>(a, view, stream);
+  if (D == 256) return launch_decode<QT, KT, 256>(a, view, stream);
   return -1;
 }
 

@@ -37,12 +37,17 @@
 //  - the products: with a bf16 query and a bf16 or int8 cache, Q K^T and
 //    P V are m16n8k16 bf16 tensor-core products (mma.sync) with f32 sums,
 //    the group's query heads as the 16 rows (the rows past G zero), K and V
-//    fragments by ldmatrix (int8 widened exactly to bf16).  Q, K and V are
+//    fragments by ldmatrix (int8 widened exactly to bf16); Q's fragments in
+//    registers, or past D 128 read from shared memory a k-step at a time
+//    (QRows).  Q, K and V are
 //    exact in bf16, so Q K^T is as exact as f32 FMAs; P goes into P V as a
 //    pair of bf16 products (hi + lo, 16 bits).  With an f32 query or cache,
 //    where bf16 would lose what the f32 tolerance holds, they are f32 FMA
 //    loops: lane j takes key j for every head, Q broadcast from shared
-//    memory, and lane c columns 4c .. 4c + 3 of P V.
+//    memory, and lane c columns 4c .. 4c + 3 of P V (8c .. 8c + 7 past
+//    D 128).
+//  - a thread block has 4 warps, or 2 or 1 where 4 rings would not fit:
+//    at D 256 a warp's stage is 34 KB in bf16 and 67 KB in f32.
 //  - pass 1 writes the split's unnormalised acc [G, D], m and l in f32 to
 //    a workspace; pass 2, one thread block per (row, query head), rescales
 //    the row's live splits (ceil(length / keys_per_split) of them) by
@@ -124,10 +129,13 @@ struct DecodeLayout {
   static_assert(kRowBytes % 32 == 0, "row must be an even number of chunks");
 };
 
-// shared memory besides the ring: for the FMA product Q [GM][D] and each
-// warp's P [32][GM]; each warp's m / l [GM]; the split's page entries
-constexpr int decode_fixed_bytes(bool tensor, int D, int GM, int warps) {
-  return 4 * ((tensor ? 0 : GM * D + warps * kWarpKeys * GM) +
+// shared memory besides the ring: for the tensor-core product each warp's
+// Q rows past D 128 (QRows), for the FMA product Q [GM][D] and each warp's
+// P [32][GM]; each warp's m / l [GM]; the split's page entries
+template <int D>
+constexpr int decode_fixed_bytes(bool tensor, int GM, int warps) {
+  return (tensor ? warps * QRows<D>::kBytes : 0) +
+         4 * ((tensor ? 0 : GM * D + warps * kWarpKeys * GM) +
               2 * warps * GM) +
          4 * kMaxSplitPages;
 }
@@ -139,16 +147,16 @@ struct DecodeTiling {
   // tiles in a warp's ring: one in flight while one is computed (a third
   // or fourth measured no faster on the H100)
   static constexpr int kStages = 2;
-  static constexpr int kWarps =
-      4 * kStages * L::kStageBytes +
-                  decode_fixed_bytes(kTensor, D, GM, 4) <=
-              kDecodeSmemLimit
-          ? 4
-          : 2;
+  static constexpr bool fits(int warps) {
+    return warps * kStages * L::kStageBytes +
+               decode_fixed_bytes<D>(kTensor, GM, warps) <=
+           kDecodeSmemLimit;
+  }
+  static constexpr int kWarps = fits(4) ? 4 : (fits(2) ? 2 : 1);
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kRingBytes = kWarps * kStages * L::kStageBytes;
   static constexpr int kSmemBytes =
-      kRingBytes + decode_fixed_bytes(kTensor, D, GM, kWarps);
+      kRingBytes + decode_fixed_bytes<D>(kTensor, GM, kWarps);
   static_assert(kSmemBytes <= 227 * 1024, "shared memory");
   // the ring is reused for the warps' [GM][D] f32 sums at the end
   static_assert(kRingBytes >= kWarps * GM * D * 4, "merge buffer");
@@ -157,13 +165,15 @@ struct DecodeTiling {
 
 // ---- a warp's tile product, f32 FMA ----------------------------------------
 // Lane j: key j of the tile for all GM heads (Q broadcast from shared
-// memory); then lane c: columns 4c .. 4c + 3 of P V for all heads.
+// memory); then lane c: columns CPL c .. CPL c + CPL - 1 of P V for all
+// heads.
 template <typename KT, int D, int GM>
 struct FmaTile {
   using L = DecodeLayout<KT, D>;
-  static constexpr int NCG = D / 4;   // lanes owning output columns
-  static_assert(NCG <= 32, "tiling");
-  float m[GM], l[GM], acc[GM][4];
+  static constexpr int CPL = D > 128 ? 8 : 4;   // output columns a lane
+  static constexpr int NCG = D / CPL;           // lanes owning columns
+  static_assert(NCG <= 32 && D % CPL == 0, "tiling");
+  float m[GM], l[GM], acc[GM][CPL];
 
   __device__ __forceinline__ void init() {
 #pragma unroll
@@ -171,7 +181,7 @@ struct FmaTile {
       m[g] = kNegInf;
       l[g] = 0.f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[g][c] = 0.f;
+      for (int c = 0; c < CPL; ++c) acc[g][c] = 0.f;
     }
   }
 
@@ -210,7 +220,7 @@ struct FmaTile {
       l[g] = l[g] * alpha + warp_sum(p);
       m[g] = m_new;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[g][c] *= alpha;
+      for (int c = 0; c < CPL; ++c) acc[g][c] *= alpha;
       s[g] = p * v_sc;
     }
     if constexpr (GM % 4 == 0) {
@@ -225,11 +235,14 @@ struct FmaTile {
     __syncwarp();
     if (lane < NCG) {
       const unsigned char* vcol =
-          st + L::kTileBytes + lane * 4 * static_cast<int>(sizeof(KT));
+          st + L::kTileBytes + lane * CPL * static_cast<int>(sizeof(KT));
 #pragma unroll 4
       for (int j = 0; j < kWarpKeys; ++j) {
-        float vx[4];
-        load4(reinterpret_cast<const KT*>(vcol + j * L::kPitch), vx);
+        float vx[CPL];
+#pragma unroll
+        for (int u = 0; u < CPL; u += 4)
+          load4(reinterpret_cast<const KT*>(vcol + j * L::kPitch) + u,
+                vx + u);
         const float* pj = P + j * GM;
         if constexpr (GM % 4 == 0) {
 #pragma unroll
@@ -239,13 +252,13 @@ struct FmaTile {
 #pragma unroll
             for (int u = 0; u < 4; ++u)
 #pragma unroll
-              for (int c = 0; c < 4; ++c) acc[g + u][c] += pg[u] * vx[c];
+              for (int c = 0; c < CPL; ++c) acc[g + u][c] += pg[u] * vx[c];
           }
         } else {
 #pragma unroll
           for (int g = 0; g < GM; ++g)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) acc[g][c] += pj[g] * vx[c];
+            for (int c = 0; c < CPL; ++c) acc[g][c] += pj[g] * vx[c];
         }
       }
     }
@@ -258,8 +271,12 @@ struct FmaTile {
 #pragma unroll
       for (int g = 0; g < GM; ++g)
         if (g < G)
-          *reinterpret_cast<float4*>(red + (warp * GM + g) * D + lane * 4) =
-              make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+#pragma unroll
+          for (int u = 0; u < CPL; u += 4)
+            *reinterpret_cast<float4*>(red + (warp * GM + g) * D +
+                                       lane * CPL + u) =
+                make_float4(acc[g][u], acc[g][u + 1], acc[g][u + 2],
+                            acc[g][u + 3]);
     }
     if (lane == 0) {
 #pragma unroll
@@ -283,23 +300,36 @@ struct MmaTile {
   static constexpr int KS = D / 16;   // k-steps of Q K^T
   static constexpr int ND = D / 8;    // n-tiles of P V
   static_assert(D % 16 == 0 && ND % 2 == 0, "tiling");
-  uint32_t qa[KS][4];                 // Q as the A operand, all k-steps
+  using QR = QRows<D>;
+  // Q as the A operand: all k-steps in registers, or this warp's rows in
+  // shared memory (QR::kInSmem)
+  uint32_t qa[QR::kInSmem ? 1 : KS][4];
+  unsigned char* qs;
   float m[2], l[2], acc[ND][4];       // l: this lane's keys only
 
+  // qsm: this warp's QR::kBytes of shared memory
   __device__ __forceinline__ void init(const __nv_bfloat16* q, long q_row,
-                                       int G, int lane) {
+                                       int G, int lane, unsigned char* qsm) {
     const int g = lane >> 2;
     const int t = lane & 3;
+    qs = qsm;
+    if constexpr (QR::kInSmem) {
+      const __nv_bfloat16* row[2] = {
+          g < G ? q + (q_row + g) * D : nullptr,
+          g + 8 < G ? q + (q_row + g + 8) * D : nullptr};
+      QR::fill(qsm, row, lane);
+    } else {
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
+      for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {   // rows g, g + 8; columns +0, +8
-        const int head = g + (r & 1) * 8;
-        const int col = ks * 16 + 2 * t + (r >> 1) * 8;
-        qa[ks][r] = head < G ? *reinterpret_cast<const uint32_t*>(
-                                   q + (q_row + head) * D + col)
-                             : 0u;
-      }
+        for (int r = 0; r < 4; ++r) {   // rows g, g + 8; columns +0, +8
+          const int head = g + (r & 1) * 8;
+          const int col = ks * 16 + 2 * t + (r >> 1) * 8;
+          qa[ks][r] = head < G ? *reinterpret_cast<const uint32_t*>(
+                                     q + (q_row + head) * D + col)
+                               : 0u;
+        }
+    }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       m[i] = kNegInf;
@@ -309,6 +339,17 @@ struct MmaTile {
     for (int n = 0; n < ND; ++n)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+  }
+
+  // k-step ks's A fragments
+  __device__ __forceinline__ void qfrag(uint32_t a[4], int ks,
+                                        int lane) const {
+    if constexpr (QR::kInSmem) {
+      QR::frag(a, qs, ks, lane);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[r] = qa[ks][r];
+    }
   }
 
   // st: the tile's stage; keys kv0 + j below hi are live
@@ -329,32 +370,41 @@ struct MmaTile {
       for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
     if constexpr (kQuant) {
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t a[4];
+        qfrag(a, ks, lane);
 #pragma unroll
         for (int n = 0; n < 4; ++n) {
           const int8_t* row = reinterpret_cast<const int8_t*>(
               Kt + (n * 8 + g) * L::kPitch) + ks * 16 + 2 * t;
-          mma_bf16(s[n], qa[ks], pack_i8(row[0], row[1]),
+          mma_bf16(s[n], a, pack_i8(row[0], row[1]),
                    pack_i8(row[8], row[9]));
         }
+      }
     } else {
 #pragma unroll
-      for (int ks = 0; ks + 1 < KS; ks += 2)
+      for (int ks = 0; ks + 1 < KS; ks += 2) {
+        uint32_t a0[4], a1[4];
+        qfrag(a0, ks, lane);
+        qfrag(a1, ks + 1, lane);
 #pragma unroll
         for (int n = 0; n < 4; ++n) {
           uint32_t b[4];
           ldsm_x4(b, Kt + (n * 8 + r8) * L::kPitch +
                          ((ks + (mi >> 1)) * 16 + (mi & 1) * 8) * 2);
-          mma_bf16(s[n], qa[ks], b[0], b[1]);
-          mma_bf16(s[n], qa[ks + 1], b[2], b[3]);
+          mma_bf16(s[n], a0, b[0], b[1]);
+          mma_bf16(s[n], a1, b[2], b[3]);
         }
+      }
       if constexpr (KS % 2 == 1) {
+        uint32_t a[4];
+        qfrag(a, KS - 1, lane);
 #pragma unroll
         for (int n = 0; n < 4; ++n) {
           uint32_t b[2];
           ldsm_x2(b, Kt + (n * 8 + r8) * L::kPitch +
                          ((KS - 1) * 16 + (mi & 1) * 8) * 2);
-          mma_bf16(s[n], qa[KS - 1], b[0], b[1]);
+          mma_bf16(s[n], a, b[0], b[1]);
         }
       }
     }
@@ -520,9 +570,12 @@ __global__ void __launch_bounds__(DecodeTiling<QT, KT, D, GM>::kThreads)
   const int ntiles = hi > lo ? (hi - lo + WK - 1) / WK : 0;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  // past the ring: the FMA product's Q [GM][D] and P [NW][WK][GM] (16-byte
-  // aligned for float4), then m / l [NW][GM] and the page entries
-  float* Qs = reinterpret_cast<float*>(smem + T::kRingBytes);
+  // past the ring: the tensor-core product's Q rows [NW] past D 128, the
+  // FMA product's Q [GM][D] and P [NW][WK][GM] (16-byte aligned for
+  // float4), then m / l [NW][GM] and the page entries
+  constexpr int QB = T::kTensor ? QRows<D>::kBytes : 0;
+  unsigned char* qrows = smem + T::kRingBytes;
+  float* Qs = reinterpret_cast<float*>(qrows + NW * QB);
   float* Ps = Qs + (T::kTensor ? 0 : GM * D);
   float* Mw = Ps + (T::kTensor ? 0 : NW * WK * GM);
   float* Lw = Mw + NW * GM;
@@ -532,7 +585,7 @@ __global__ void __launch_bounds__(DecodeTiling<QT, KT, D, GM>::kThreads)
 
   std::conditional_t<T::kTensor, MmaTile<KT, D>, FmaTile<KT, D, GM>> prod;
   if constexpr (T::kTensor) {
-    prod.init(q, q_row, G, lane);
+    prod.init(q, q_row, G, lane, qrows + warp * QB);
   } else {
     prod.init();
     for (int c = tid; c < GM * (D / 4); c += NT) {

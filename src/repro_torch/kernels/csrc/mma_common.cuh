@@ -79,6 +79,46 @@ __device__ __forceinline__ uint32_t pack_i8(int8_t lo, int8_t hi) {
   return pack_bf16(static_cast<float>(lo), static_cast<float>(hi));
 }
 
+// ---- a warp's 16 query rows as the A operand -------------------------------
+// Up to D 128 the tensor-core bodies keep Q's A fragments of every k-step in
+// registers (D / 4 of them a lane) for the whole walk.  Past D 128 those 64
+// registers would sit beside the output accumulators (D / 2 a lane) and the
+// scores, over what a thread holds, so a warp keeps its [16][D] bf16 rows in
+// shared memory instead and reads one k-step's fragments at a time by
+// ldmatrix (as FlashAttention-2 does at this width).
+template <int D>
+struct QRows {
+  static constexpr bool kInSmem = D > 128;
+  // 16 bytes past the row, an odd number of 16-byte units: the 8 rows of
+  // one ldmatrix 8 x 8 hit 32 distinct banks
+  static constexpr int kPitch = 2 * D + 16;
+  static constexpr int kBytes = kInSmem ? 16 * kPitch : 0;   // a warp's
+  static_assert(D % 16 == 0, "tiling");
+
+  // lane (g, t) copies its rows g and g + 8 (row[i] null: zeros) into dst
+  __device__ __forceinline__ static void fill(
+      unsigned char* dst, const __nv_bfloat16* const row[2], int lane) {
+    const int g = lane >> 2;
+    const int t = lane & 3;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      for (int c = t; c < D / 8; c += 4)
+        *reinterpret_cast<uint4*>(dst + (g + 8 * i) * kPitch + c * 16) =
+            row[i] != nullptr
+                ? *reinterpret_cast<const uint4*>(row[i] + c * 8)
+                : make_uint4(0u, 0u, 0u, 0u);
+    __syncwarp();
+  }
+  // k-step ks's fragments: rows g, g + 8 at columns 16 ks + 2t (+8)
+  __device__ __forceinline__ static void frag(uint32_t a[4],
+                                              const unsigned char* src, int ks,
+                                              int lane) {
+    const int mi = lane >> 3;
+    ldsm_x4(a, src + ((lane & 7) + (mi & 1) * 8) * kPitch +
+                   (ks * 16 + (mi >> 1) * 8) * 2);
+  }
+};
+
 // The tensor-core product takes a bf16 query over a bf16 or int8 cache.
 template <typename QT, typename KT>
 constexpr bool uses_tensor_cores() {

@@ -27,10 +27,12 @@
 //    (prefill_mma_kernel), FlashAttention-2 on mma.sync.  kMmaWarps warps
 //    of 16 query rows each (the m16n8k16 product's M); a warp's Q is
 //    loaded once into A fragments that stay in registers for the whole
-//    walk.  64-key K/V tiles, shared by the block's warps, lie in a ring of
-//    two stages in shared memory in the storage type (int8 per-key scales
-//    beside them), brought in by 16-byte cp.async: the next tile's loads
-//    are in flight while one is computed, with one block barrier a tile.
+//    walk (past D 128 into shared memory, whence each k-step's fragments
+//    come by ldmatrix: QRows).  64-key K/V tiles, shared by the block's
+//    warps, lie in a ring of two stages in shared memory in the storage
+//    type (int8 per-key scales beside them), brought in by 16-byte
+//    cp.async: the next tile's loads are in flight while one is
+//    computed, with one block barrier a tile.
 //    An int8 tile is widened exactly to bf16 by the whole block into one
 //    of two bf16 stages, one iteration before its products (per-warp
 //    widening of every fragment cost twice the bf16 time).  S = Q K^T by
@@ -320,8 +322,10 @@ struct PrefillRings {
   using Compute = PrefillStage<__nv_bfloat16, D, kQuant>;
   static constexpr int kStoreStages = kQuant ? 2 : kMmaStages;
   static constexpr int kStoreBytes = kStoreStages * Store::kBytes;
-  static constexpr int kSmemBytes =
+  // past the rings: the warps' Q rows past D 128 (QRows)
+  static constexpr int kQOffset =
       kStoreBytes + (kQuant ? 2 * Compute::kBytes : 0);
+  static constexpr int kSmemBytes = kQOffset + kMmaWarps * QRows<D>::kBytes;
   static_assert(kStoreStages >= 2, "ring");
   static_assert(kSmemBytes <= 227 * 1024, "shared memory");
 };
@@ -337,22 +341,32 @@ struct PrefillMmaTile {
   static constexpr int ND = D / 8;    // n-tiles of P V (14 for D 112)
   static constexpr int NK = kMmaKeys / 8;
   static_assert(D % 16 == 0 && ND % 2 == 0, "tiling");
-  uint32_t qa[KS][4];                 // Q as the A operand, all k-steps
+  using QR = QRows<D>;
+  // Q as the A operand: all k-steps in registers, or this warp's rows in
+  // shared memory (QR::kInSmem)
+  uint32_t qa[QR::kInSmem ? 1 : KS][4];
+  unsigned char* qs;
   float m[2], l[2], acc[ND][4];       // l: this lane's keys only
 
-  // row: q's rows g and g + 8 of the warp (null where a row is unused)
+  // row: q's rows g and g + 8 of the warp (null where a row is unused);
+  // qsm: this warp's QR::kBytes of shared memory
   __device__ __forceinline__ void init(const __nv_bfloat16* const row[2],
-                                       int lane) {
+                                       int lane, unsigned char* qsm) {
     const int t = lane & 3;
+    qs = qsm;
+    if constexpr (QR::kInSmem) {
+      QR::fill(qsm, row, lane);
+    } else {
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
+      for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {   // rows g, g + 8; columns +0, +8
-        const __nv_bfloat16* p = row[r & 1];
-        qa[ks][r] = p != nullptr ? *reinterpret_cast<const uint32_t*>(
-                                       p + ks * 16 + 2 * t + (r >> 1) * 8)
-                                 : 0u;
-      }
+        for (int r = 0; r < 4; ++r) {   // rows g, g + 8; columns +0, +8
+          const __nv_bfloat16* p = row[r & 1];
+          qa[ks][r] = p != nullptr ? *reinterpret_cast<const uint32_t*>(
+                                         p + ks * 16 + 2 * t + (r >> 1) * 8)
+                                   : 0u;
+        }
+    }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       m[i] = kNegInf;
@@ -362,6 +376,17 @@ struct PrefillMmaTile {
     for (int n = 0; n < ND; ++n)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+  }
+
+  // k-step ks's A fragments
+  __device__ __forceinline__ void qfrag(uint32_t a[4], int ks,
+                                        int lane) const {
+    if constexpr (QR::kInSmem) {
+      QR::frag(a, qs, ks, lane);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[r] = qa[ks][r];
+    }
   }
 
   // s = Q K^T over the stage's 64 keys
@@ -374,22 +399,28 @@ struct PrefillMmaTile {
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks + 1 < KS; ks += 2)
+    for (int ks = 0; ks + 1 < KS; ks += 2) {
+      uint32_t a0[4], a1[4];
+      qfrag(a0, ks, lane);
+      qfrag(a1, ks + 1, lane);
 #pragma unroll
       for (int n = 0; n < NK; ++n) {
         uint32_t b[4];
         ldsm_x4(b, Kt + (n * 8 + r8) * L::kPitch +
                        ((ks + (mi >> 1)) * 16 + (mi & 1) * 8) * 2);
-        mma_bf16(s[n], qa[ks], b[0], b[1]);
-        mma_bf16(s[n], qa[ks + 1], b[2], b[3]);
+        mma_bf16(s[n], a0, b[0], b[1]);
+        mma_bf16(s[n], a1, b[2], b[3]);
       }
+    }
     if constexpr (KS % 2 == 1) {
+      uint32_t a[4];
+      qfrag(a, KS - 1, lane);
 #pragma unroll
       for (int n = 0; n < NK; ++n) {
         uint32_t b[2];
         ldsm_x2(b, Kt + (n * 8 + r8) * L::kPitch +
                        ((KS - 1) * 16 + (mi & 1) * 8) * 2);
-        mma_bf16(s[n], qa[KS - 1], b[0], b[1]);
+        mma_bf16(s[n], a, b[0], b[1]);
       }
     }
   }
@@ -601,11 +632,14 @@ __global__ void __launch_bounds__(32 * kMmaWarps) prefill_mma_kernel(
     qpos[i] = r < rows_used ? st + t0 + r / G : -1;
     roff[i] = r < rows_used ? row_offset(r) : -1;
   }
+  // (named apart from the FMA body's float array: one extern array a type)
+  extern __shared__ __align__(16) unsigned char ring[];
+  unsigned char* wide = ring + R::kStoreBytes;   // int8: the bf16 stages
   Tile prod;
   {
     const __nv_bfloat16* qrow[2] = {roff[0] >= 0 ? q + roff[0] : nullptr,
                                     roff[1] >= 0 ? q + roff[1] : nullptr};
-    prod.init(qrow, lane);
+    prod.init(qrow, lane, ring + R::kQOffset + warp * QRows<D>::kBytes);
   }
   const bool warp_live = warp * 16 < rows_used;
   // tiles whose last key is at or below the warp's first query, and below
@@ -616,10 +650,6 @@ __global__ void __launch_bounds__(32 * kMmaWarps) prefill_mma_kernel(
   // lies past what the storage holds
   const int kv_hi = view.limit(min(end, st + t0 + n_tok));
   const int ntiles = (kv_hi + TK - 1) / TK;
-
-  // (named apart from the FMA body's float array: one extern array a type)
-  extern __shared__ __align__(16) unsigned char ring[];
-  unsigned char* wide = ring + R::kStoreBytes;   // int8: the bf16 stages
 
   // the token handle of this lane's key of tile i (-1: none); read one
   // iteration before its copies are issued, so that a table entry's load

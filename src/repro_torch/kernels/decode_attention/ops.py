@@ -203,7 +203,7 @@ def decode_attention(q, k, v, lengths):
     """Dense flash-decode: q [B, Hq, D] attends over the first
     ``lengths[b]`` keys of its row of k, v [B, S, Hkv, D] (any layout
     whose last axis is contiguous; read in place).  lengths: int [B],
-    capped at S.  Head dims 64, 112 and 128, up to 16 query heads a KV
+    capped at S.  Head dims 64, 112, 128 and 256, up to 16 query heads a KV
     head, float32 or bfloat16.  Returns [B, Hq, D] in q's type; a row with
     no key comes out zero.
 

@@ -11,6 +11,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 NEG_INF = -1e30
 #: the kernels' floor on a softmax denominator (a row with no key is 0)
 MIN_DENOMINATOR = 1e-30
+#: head dims the dense kernels are built for (``csrc/decode.cu``,
+#: ``csrc/chunked_prefill.cu``): smollm / granite, zamba2-7b, qwen, gemma3
+DENSE_HEAD_DIMS = (64, 112, 128, 256)
 
 
 def gather_pool(pool, tables, block_size: int):
@@ -117,8 +120,9 @@ def dense_args(q, k, v):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
         raise TypeError(f"unsupported cache types {k.dtype}, {v.dtype}")
-    if D not in (64, 112, 128):
-        raise ValueError(f"head_dim must be 64, 112 or 128, got {D}")
+    if D not in DENSE_HEAD_DIMS:
+        raise ValueError(
+            f"head_dim must be one of {DENSE_HEAD_DIMS}, got {D}")
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
             or k.shape[3] != D:
         raise ValueError(f"k/v must be [{q.shape[0]}, S, Hkv, {D}], got "

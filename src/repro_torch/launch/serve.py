@@ -15,9 +15,11 @@ Modes:
 Both real-engine modes run on the card (``--device cuda``, the default) at
 the registered width; ``--reduced`` serves the small test variant and
 ``--device cpu`` the kernels' plain versions.  All-ATTN archs take the
-paged executor path, Mamba2 and hybrid archs (mamba2-1.3b, zamba2-7b) the
-batched dense one, as ``engine.packable`` decides (and only the former
-fuse decode horizons).
+paged executor path; Mamba2, hybrid, MoE and sliding-window archs
+(mamba2-1.3b, zamba2-7b, granite-moe-3b-a800m, arctic-480b, gemma3-1b)
+the batched dense one, as ``engine.packable`` decides (and only the
+former fuse decode horizons).  Encoder-decoder and VLM archs are not in
+the port yet.
 
 ``--serve HOST:PORT`` puts the same live loop behind the OpenAI-compatible
 HTTP/SSE front end (``repro_torch.frontend``): ``POST /v1/completions``
@@ -37,6 +39,8 @@ Examples:
       --arch smollm-135m --reduced --device cpu --qps 4 --n 8
   PYTHONPATH=src python -m repro_torch.launch.serve --engine torch \\
       --arch zamba2-7b --reduced --device cpu --qps 2 --n 8 --np 1 --nd 1
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine live \\
+      --arch gemma3-1b --np 1 --nd 1 --slots 8 --qps 8 --n 16
   PYTHONPATH=src python -m repro_torch.launch.serve --engine live \\
       --serve 127.0.0.1:8000 --arch smollm-135m --reduced --device cpu
 """

@@ -1,11 +1,13 @@
 """GQA attention with KV-cache support for chunked-prefill / decode — the
-ATTN subset of the reference's ``models/attention.py``.
+reference's ``models/attention.py`` without cross-attention.
 
 Cache layout per attention layer: ``{"k": [B, S, Hkv, Dh], "v": ...}``
 (dense) or ``{"k": [P + 1, Hkv, Dh], "v": ...}`` (paged block pool, see
-``paged_write``).  Keys are stored with RoPE already applied at their
-absolute position, so reads are position-free.  Masks are computed
-analytically from the per-row write position.
+``paged_write``).  ``S`` is the cache capacity: the full max sequence for
+global layers or the sliding window for gemma3-style local layers (a ring
+buffer: position p lives in slot ``p % S``).  Keys are stored with RoPE
+already applied at their absolute position, so reads are position-free.
+Masks are computed analytically from the per-row write position.
 
 Where the reference returns an updated copy of a donated cache buffer,
 the port UPDATES THE CACHE IN PLACE and returns the same tensors.
@@ -15,9 +17,9 @@ decode / chunked prefill over a block pool, dense decode / chunked
 prefill over a per-row cache: on a CUDA tensor they launch the kernel,
 on a CPU tensor they take the plain version.  A dense chunk padded to a
 common length (``valid_len`` with T > 1) is the one read left to a
-masked softmax, as in the reference.  The sliding-window ring buffer and
-cross-attention belong to the slice that ports the remaining model
-families.
+masked softmax, as in the reference, and so is the sliding-window read
+(no Pallas kernel of the reference computes it).  Cross-attention belongs
+to the slice that ports the encoder-decoder and VLM families.
 """
 from __future__ import annotations
 
@@ -95,6 +97,17 @@ def causal_mask(q_pos, kv_pos, window: int = 0):
     return m[:, None, None, :, :]
 
 
+def ring_slot_positions(write_end, capacity: int):
+    """Absolute position held by each ring-buffer slot after sequential
+    writes ending at ``write_end`` (exclusive), -1 for a slot not yet
+    written.  write_end: [B] -> [B, capacity]."""
+    j = torch.arange(capacity, device=write_end.device)[None, :]
+    last = write_end[:, None].long() - 1
+    a = last - torch.remainder(last - j, capacity)
+    return torch.where((a >= 0) & (write_end[:, None] > 0), a,
+                       torch.full_like(a, -1))
+
+
 def quantize_int8(x):
     """Symmetric per-token int8 KV quantization: x [..., D] ->
     (q int8 [..., D], scale f32 [...]) with ``x ~= q * scale``.  The
@@ -170,7 +183,8 @@ def paged_gather(pool, tables, block_size: int):
 
 def write_cache(cache_k, cache_v, k_new, v_new, start, valid_len=None):
     """Write [B,T] new KV at absolute positions start..start+T (per row)
-    into dense caches [B, S, Hkv, D], IN PLACE.  start: [B] int.
+    into dense caches [B, S, Hkv, D], IN PLACE.  start: [B] int.  The
+    slot of position p is ``p % S`` (a ring buffer when S is a window).
     Assumes T <= S.
 
     valid_len: optional [B] — rows padded to a common T bucket only
@@ -204,10 +218,13 @@ def self_attention(p, cfg, x, positions, cache=None, *, window: int = 0,
     cache=None  -> pure in-chunk causal attention.
     cache={k,v} -> write chunk into cache, attend over full cache (chunked
                    prefill when T>1, decode when T==1).
+    window      -> a sliding window (gemma3 local layers): the cache is a
+                   ring buffer of S = min(window, max_seq) slots.
     valid_len   -> optional [B] per-row valid token counts for T-padded
                    batched prefill: padding KV writes are dropped, padded
                    queries are masked off by causality (their outputs are
-                   discarded by the caller).
+                   discarded by the caller).  With T == 1 a row mask:
+                   rows with 0 write no KV and read as if they had.
     block_tables -> optional ``(tables [B,NB] int32, block_size)``: the
                    cache is a PAGED pool ({k,v}: [P + 1, Hkv, D]) and each
                    row's KV is addressed through its block table.
@@ -217,15 +234,9 @@ def self_attention(p, cfg, x, positions, cache=None, *, window: int = 0,
     Returns (out [B,T,d], cache); the cache is updated in place.
     """
     B, T, _ = x.shape
-    if window:
-        raise NotImplementedError(
-            "sliding-window (ring buffer) attention is not in the port "
-            "yet: it comes with the slice that ports the remaining model "
-            "families (gemma3 local layers)")
     if valid_len is not None and cache is None:
-        raise NotImplementedError(
-            "valid_len packing requires a full (non-windowed) KV cache")
-    if block_tables is not None and cache is None:
+        raise NotImplementedError("valid_len packing requires a KV cache")
+    if block_tables is not None and (cache is None or window):
         raise NotImplementedError(
             "paged KV requires a full (non-windowed) cache")
     q, k, v = _project_qkv(p, cfg, x)
@@ -236,16 +247,32 @@ def self_attention(p, cfg, x, positions, cache=None, *, window: int = 0,
         return _paged_attention(p, cfg, x, q, k, v, positions, cache,
                                 block_tables, valid_len, write_dest)
     if cache is None:
-        mask = causal_mask(positions, positions)
+        mask = causal_mask(positions, positions, window)
         probs = _masked_softmax(_gqa_scores(q, k), mask)
         return _gqa_out(probs.to(x.dtype), v, p["wo"]), None
+    if window:
+        return _ring_attention(p, x, q, k, v, positions, cache, window,
+                               valid_len)
+    held = None
+    if T == 1 and valid_len is not None:
+        # decode of a full slot batch: a row the step does not schedule
+        # writes no KV, yet reads as the reference's unmasked decode does,
+        # its own key at its frontier included, so that what it hands the
+        # next layers (an MoE's routing among them) is the reference's.
+        # Its frontier slot is written, read, then given back.
+        rows = torch.arange(B, device=x.device)
+        slots = positions[:, 0].long() % cache["k"].shape[1]
+        held = cache["k"][rows, slots], cache["v"][rows, slots]
     ck, cv = write_cache(cache["k"], cache["v"], k, v, positions[:, 0],
-                         valid_len)
+                         None if held is not None else valid_len)
     if T == 1:
         # decode: the dense decode kernel over each row's first
         # position + 1 keys
         o = decode_attention(q[:, 0], ck, cv,
                              (positions[:, -1] + 1).to(torch.int32))[:, None]
+        if held is not None:
+            write_cache(ck, cv, held[0][:, None], held[1][:, None],
+                        positions[:, 0], 1 - valid_len)
     elif valid_len is None:
         # exact-shape chunk: the dense chunked-prefill kernel takes one
         # offset for the batch (the engine prefills dense rows one slot
@@ -264,6 +291,35 @@ def self_attention(p, cfg, x, positions, cache=None, *, window: int = 0,
         probs = _masked_softmax(_gqa_scores(q, ck), mask)
         return _gqa_out(probs.to(x.dtype), cv, p["wo"]), cache
     out = o.reshape(B, T, -1).to(x.dtype) @ p["wo"]
+    return out, cache
+
+
+def _ring_attention(p, x, q, k, v, positions, cache, window: int,
+                    valid_len=None):
+    """Sliding-window attention over a ring-buffer cache [B, S, Hkv, D]
+    (S = min(window, max_seq)).  Writing first would overwrite keys still
+    needed by the chunk's early queries, so the chunk attends over the
+    prior cache plus its own fresh keys, then writes itself (its last S
+    tokens when T >= S).  ``valid_len`` drops the writes it excludes (a
+    row mask at T == 1: the rows a full-slot-batch decode does not
+    schedule); it changes no read.  Returns (out, cache), the cache
+    updated in place."""
+    T = x.shape[1]
+    S = cache["k"].shape[1]
+    start = positions[:, 0]
+    kv_pos = torch.cat([ring_slot_positions(start, S), positions.long()],
+                       dim=1)
+    mask = causal_mask(positions, kv_pos, window)
+    k_all = torch.cat([cache["k"], k], dim=1)
+    v_all = torch.cat([cache["v"], v], dim=1)
+    probs = _masked_softmax(_gqa_scores(q, k_all), mask)
+    out = _gqa_out(probs.to(x.dtype), v_all, p["wo"])
+    if T >= S:
+        k, v = k[:, -S:], v[:, -S:]
+        start = positions[:, -1] + 1 - S
+        if valid_len is not None:
+            valid_len = torch.clamp(valid_len - (T - S), min=0)
+    write_cache(cache["k"], cache["v"], k, v, start, valid_len)
     return out, cache
 
 
@@ -307,5 +363,6 @@ def _paged_attention(p, cfg, x, q, k, v, positions, cache, block_tables,
 
 def cross_attention(p, cfg, x, kv, kv_valid=None):
     raise NotImplementedError(
-        "cross-attention is not in the port yet: it comes with the slice "
-        "that ports the encoder-decoder family (whisper)")
+        "cross-attention is not in the port yet: it comes with the next "
+        "slice, which ports the encoder-decoder (whisper) and VLM (llava) "
+        "families")

@@ -1,5 +1,6 @@
-"""Decoder stack of the port — the ATTN, MAMBA2 and ZAMBA_ATTN subset of
-the reference's ``models/transformer.py``.
+"""Decoder stack of the port — the decoder-only block types (ATTN,
+ATTN_LOCAL, MOE, MAMBA2, ZAMBA_ATTN) of the reference's
+``models/transformer.py``.
 
 Entry points (plain functions on dicts of tensors):
 
@@ -17,14 +18,16 @@ un-stacks that layout into this one.  A Python loop over the layers stands
 where the reference scans.
 
 A cache is a dict of tensors stacked over the layers that hold them:
-``"k"``/``"v"`` over the attention layers (ATTN, ZAMBA_ATTN), ``"conv"``/
-``"ssm"`` over the recurrent ones (MAMBA2, ZAMBA_ATTN; ``ssm`` is float32).
-Layer ``l`` works on views of its entries and UPDATES THEM IN PLACE, where
-the reference threads a donated buffer through its scan.  ``forward``
-returns the same cache object.
+``"k"``/``"v"`` over the full-cache attention layers (ATTN, MOE,
+ZAMBA_ATTN), ``"k_local"``/``"v_local"`` over the sliding-window ones
+(ATTN_LOCAL: ring buffers of ``min(window, max_seq)`` slots),
+``"conv"``/``"ssm"`` over the recurrent ones (MAMBA2, ZAMBA_ATTN; ``ssm``
+is float32).  Layer ``l`` works on views of its entries and UPDATES THEM
+IN PLACE, where the reference threads a donated buffer through its scan.
+``forward`` returns the same cache object.
 
-MoE, sliding-window and encoder-decoder blocks, and the VLM projector
-(image inputs), raise and name the slice that brings them.
+Encoder-decoder blocks and the VLM projector (image inputs) raise and name
+the slice that brings them.
 """
 from __future__ import annotations
 
@@ -34,22 +37,27 @@ import torch
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (dense_init, init_mlp, mlp, rms_norm,
                                        rope_tables)
-from repro_torch.models.config import ATTN, MAMBA2, ZAMBA_ATTN, ModelConfig
+from repro_torch.models.config import (ATTN, ATTN_LOCAL, MAMBA2, MOE,
+                                       ZAMBA_ATTN, ModelConfig)
 
-#: block types whose layers hold attention KV / recurrent state
-KV_BLOCKS = (ATTN, ZAMBA_ATTN)
+#: block types whose layers hold full-cache attention KV, a ring buffer,
+#: recurrent state
+KV_BLOCKS = (ATTN, MOE, ZAMBA_ATTN)
+RING_BLOCKS = (ATTN_LOCAL,)
 STATE_BLOCKS = (MAMBA2, ZAMBA_ATTN)
-PORTED = (ATTN, MAMBA2, ZAMBA_ATTN)
+PORTED = (ATTN, ATTN_LOCAL, MOE, MAMBA2, ZAMBA_ATTN)
+_NEXT_SLICE = ("the next slice, which ports the encoder-decoder (whisper) "
+               "and VLM (llava) families")
 
 
 def _unported(btype: str):
     return NotImplementedError(
-        f"block type {btype!r} is not in the port yet: full-attention, "
-        "Mamba2 and hybrid (zamba2) stacks are; MoE, sliding-window and "
-        "encoder-decoder blocks come with the slice that ports the "
-        "remaining model families")
+        f"block type {btype!r} is not in the port yet: decoder-only "
+        "stacks (full and sliding-window attention, MoE, Mamba2, zamba2) "
+        f"are; encoder-decoder blocks come with {_NEXT_SLICE}")
 
 
 def layer_types(cfg: ModelConfig):
@@ -64,14 +72,22 @@ def _check_ported(cfg: ModelConfig):
             raise _unported(b)
 
 
+def kv_leaves(btype: str):
+    """The cache entries that hold a layer of type ``btype``'s KV."""
+    return ("k_local", "v_local") if btype in RING_BLOCKS else ("k", "v")
+
+
 def cache_slots(cfg: ModelConfig):
     """For every layer, ``(kv index, state index)``: its position in the
-    cache's ``k``/``v`` and ``conv``/``ssm`` stacks, or None."""
-    out, n_kv, n_state = [], 0, 0
+    cache's ``k``/``v`` stack (``k_local``/``v_local`` for a ring layer,
+    see :func:`kv_leaves`) and ``conv``/``ssm`` stack, or None."""
+    out, n_kv, n_ring, n_state = [], 0, 0, 0
     for b in layer_types(cfg):
         kv = st = None
         if b in KV_BLOCKS:
             kv, n_kv = n_kv, n_kv + 1
+        elif b in RING_BLOCKS:
+            kv, n_ring = n_ring, n_ring + 1
         if b in STATE_BLOCKS:
             st, n_state = n_state, n_state + 1
         out.append((kv, st))
@@ -86,10 +102,16 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, btype: str):
     d = cfg.d_model
     zeros = lambda: torch.zeros((d,), dtype=cfg.param_dtype,
                                 device=gen.device)
-    if btype == ATTN:
+    if btype in (ATTN, ATTN_LOCAL):
         return {"ln1": zeros(), "attn": attn_lib.init_attention(gen, cfg),
                 "ln2": zeros(), "mlp": init_mlp(gen, d, cfg.d_ff,
                                                 cfg.param_dtype)}
+    if btype == MOE:
+        p = {"ln1": zeros(), "attn": attn_lib.init_attention(gen, cfg),
+             "ln2": zeros(), "moe": moe_lib.init_moe(gen, cfg)}
+        if cfg.dense_residual:
+            p["dense_mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.param_dtype)
+        return p
     if btype in (MAMBA2, ZAMBA_ATTN):
         p = {"ln1": zeros(), "mixer": m2.init_mamba2(gen, cfg)}
         if cfg.d_ff > 0:
@@ -129,19 +151,26 @@ def init_params(seed: int, cfg: ModelConfig, device="cuda"):
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device="cuda"):
     """Dense per-row cache.  ``{"k", "v"}`` each [L_kv, batch, max_seq,
-    Hkv, Dh] over the attention layers, and ``{"conv": [L_state, batch,
-    k-1, C_in], "ssm": [L_state, batch, H, P, N] float32}`` over the
-    recurrent layers; a family holds only the entries it uses."""
+    Hkv, Dh] over the full-cache attention layers, ``{"k_local",
+    "v_local"}`` each [L_ring, batch, min(window, max_seq), Hkv, Dh] over
+    the sliding-window ones, and ``{"conv": [L_state, batch, k-1, C_in],
+    "ssm": [L_state, batch, H, P, N] float32}`` over the recurrent layers;
+    a family holds only the entries it uses."""
     _check_ported(cfg)
     dtype = dtype or cfg.param_dtype
     types = layer_types(cfg)
     n_kv = sum(b in KV_BLOCKS for b in types)
+    n_ring = sum(b in RING_BLOCKS for b in types)
     n_state = sum(b in STATE_BLOCKS for b in types)
     cache = {}
-    if n_kv:
-        shape = (n_kv, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
-        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    for n, names, seq in (
+            (n_kv, kv_leaves(ATTN), max_seq),
+            (n_ring, kv_leaves(ATTN_LOCAL),
+             min(cfg.sliding_window or max_seq, max_seq))):
+        if n:
+            shape = (n, batch, seq, cfg.num_kv_heads, cfg.head_dim)
+            for name in names:
+                cache[name] = torch.zeros(shape, dtype=dtype, device=device)
     if n_state:
         cache["conv"] = torch.zeros(
             (n_state, batch, cfg.ssm_conv - 1, m2.conv_channels(cfg)),
@@ -196,17 +225,31 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
 def _apply_block(btype, bp, cfg, x, positions, cache, shared_attn,
                  valid_len=None, block_tables=None, rope_cs=None,
                  write_dest=None):
-    """Returns x; ``cache`` (this layer's views) is updated in place."""
-    if btype == ATTN:
+    """Returns (x, aux loss or None); ``cache`` (this layer's views) is
+    updated in place."""
+    if btype in (ATTN, ATTN_LOCAL):
         h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-        a, _ = attn_lib.self_attention(bp["attn"], cfg, h, positions, cache,
-                                       valid_len=valid_len,
-                                       block_tables=block_tables,
-                                       rope_cs=rope_cs,
-                                       write_dest=write_dest)
+        a, _ = attn_lib.self_attention(
+            bp["attn"], cfg, h, positions, cache,
+            window=cfg.sliding_window if btype == ATTN_LOCAL else 0,
+            valid_len=valid_len, block_tables=block_tables, rope_cs=rope_cs,
+            write_dest=write_dest)
         x = x + a
         h = rms_norm(x, bp["ln2"], cfg.norm_eps)
-        return x + mlp(bp["mlp"], h)
+        return x + mlp(bp["mlp"], h), None
+    if btype == MOE:
+        # every row goes through the experts, a row the step masks out
+        # too: it takes its place in the experts' capacity, as in the
+        # reference (valid_len masks KV writes only)
+        h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+        a, _ = attn_lib.self_attention(bp["attn"], cfg, h, positions, cache,
+                                       valid_len=valid_len, rope_cs=rope_cs)
+        x = x + a
+        h = rms_norm(x, bp["ln2"], cfg.norm_eps)
+        mo, aux = moe_lib.moe_ffn(bp["moe"], cfg, h)
+        if cfg.dense_residual:
+            mo = mo + mlp(bp["dense_mlp"], h)
+        return x + mo, aux
     if btype in (MAMBA2, ZAMBA_ATTN):
         if btype == ZAMBA_ATTN:
             h = rms_norm(x, bp["ln_attn"], cfg.norm_eps)
@@ -225,7 +268,7 @@ def _apply_block(btype, bp, cfg, x, positions, cache, shared_attn,
         if cfg.d_ff > 0 and "mlp" in bp:
             h = rms_norm(x, bp["ln2"], cfg.norm_eps)
             x = x + mlp(bp["mlp"], h)
-        return x
+        return x, None
     raise _unported(btype)
 
 
@@ -250,12 +293,13 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
     its block table.
 
     Returns (logits [B, T, V] or hidden, cache, aux_loss); the cache is
-    updated in place and returned as the same object.
+    updated in place and returned as the same object; aux_loss is the sum
+    of the MoE layers' load-balance losses (float32, 0 without MoE).
     """
     if image_embeds is not None or audio_embeds is not None:
         raise NotImplementedError(
-            "image/audio inputs are not in the port yet: they come with "
-            "the slice that ports the VLM and encoder-decoder families")
+            f"image/audio inputs are not in the port yet: they come with "
+            f"{_NEXT_SLICE}")
     B, T = tokens.shape
     x = params["embed"][tokens]
     if positions is None:
@@ -271,6 +315,7 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
             positions, tables, bs, cache["k"].shape[1] - 1, valid_len)
     shared_attn = params.get("shared_attn")
     paged = block_tables is not None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for btype, bp, (kv_i, st_i) in zip(layer_types(cfg), params["layers"],
                                        cache_slots(cfg)):
         if cache is None:
@@ -280,16 +325,19 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
         else:
             lc = {}
             if kv_i is not None:
-                lc["k"], lc["v"] = cache["k"][kv_i], cache["v"][kv_i]
+                kn, vn = kv_leaves(btype)
+                lc["k"], lc["v"] = cache[kn][kv_i], cache[vn][kv_i]
             if st_i is not None:
                 lc["conv"], lc["ssm"] = cache["conv"][st_i], cache["ssm"][st_i]
-        x = _apply_block(btype, bp, cfg, x, positions, lc, shared_attn,
-                         valid_len, block_tables, rope_cs, write_dest)
+        x, block_aux = _apply_block(btype, bp, cfg, x, positions, lc,
+                                    shared_attn, valid_len, block_tables,
+                                    rope_cs, write_dest)
+        if block_aux is not None:
+            aux = aux + block_aux
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     out = x
     if compute_logits:
         out = x @ params["lm_head"]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return out, cache, aux
 
 

@@ -4,14 +4,16 @@ numpy-made inputs and weights:
 * the plain versions of the dense decode and dense chunked-prefill
   kernels against the reference's Pallas kernels in interpret mode, at
   the shapes of ``tests/test_kernels.py`` plus zamba2-7b's head dim 112
-  (float32 atol 1e-4 and bfloat16 atol 2e-2: the tolerances that test
-  holds the reference's kernels to, bfloat16 being one rounding of the
-  output on each side);
+  and gemma3-1b's 256 (float32 atol 1e-4 and bfloat16 atol 2e-2: the
+  tolerances that test holds the reference's kernels to, bfloat16 being
+  one rounding of the output on each side);
 * ``TorchExecutor(device="cpu")`` on its batched dense and row-wise paths
-  against ``JaxExecutor``, greedy and token-exact, on reduced zamba2 and
-  mamba2 — in plans where no recurrent row prefills while a decode runs
+  against ``JaxExecutor``, greedy and token-exact, on reduced zamba2,
+  mamba2, granite-moe-3b-a800m and gemma3-1b (prompts past its 32-token
+  window) — in plans where no recurrent row prefills while a decode runs
   (there the reference advances that row's state; see
-  ``test_torch_ssm.py``) — including a dense migration between two
+  ``test_torch_ssm.py``; ``test_torch_moe.py`` holds the MoE family where
+  rows prefill beside a decode) — including a dense migration between two
   executors.
 """
 import dataclasses
@@ -66,6 +68,8 @@ DECODE_SHAPES = [            # B, Hq, Hkv, D, S  (tests/test_kernels.py)
     (1, 8, 1, 128, 512),     # MQA long
     (4, 4, 4, 64, 64),
     (2, 4, 4, 112, 96),      # zamba2-7b's head dim, MHA
+    (3, 4, 1, 256, 160),     # gemma3-1b's global layers: MQA, head dim 256
+    (2, 8, 2, 256, 64),      # head dim 256, GQA 4:1
 ]
 
 
@@ -119,6 +123,8 @@ PREFILL_SHAPES = [           # B, Tq, Hq, Hkv, D, S, prefix
     (1, 32, 16, 1, 64, 96, 50),      # MQA
     (1, 4, 4, 2, 128, 16, 0),        # zero prefix (fresh prompt)
     (1, 24, 4, 4, 112, 64, 9),       # zamba2-7b's head dim, MHA
+    (1, 40, 4, 1, 256, 128, 70),     # gemma3-1b's global layers, MQA
+    (2, 16, 8, 2, 256, 48, 0),       # head dim 256, fresh prompt
 ]
 
 
@@ -145,7 +151,7 @@ def test_chunked_prefill_plain_matches_pallas(B, Tq, Hq, Hkv, D, S, prefix,
 
 # -- executors ----------------------------------------------------------------
 
-ARCHS = ["zamba2-7b", "mamba2-1.3b"]
+ARCHS = ["zamba2-7b", "mamba2-1.3b", "granite-moe-3b-a800m", "gemma3-1b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -230,7 +236,10 @@ def test_dense_migration_round_trip_token_exact(hybrid_sides, batched):
     got, got_bytes, state = _run_migrated(torch_side, batched)
     assert got == ref
     assert got_bytes == ref_bytes
-    assert state["row"]["ssm"].dtype == torch.float32
+    if "ssm" in state["row"]:
+        assert state["row"]["ssm"].dtype == torch.float32
+    if "k_local" in state["row"]:      # the ring ships whole
+        assert state["row"]["k_local"].shape[1] == 32
 
 
 def test_dense_row_allocator_admits_one_request_a_row():

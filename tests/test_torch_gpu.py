@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import reduced_config
+from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.estimator import CostModel
 from repro_torch.core.hw import InstanceSpec
 from repro_torch.core.instance import D_HEAVY, Instance
@@ -261,7 +261,8 @@ def test_decode_kernel_across_split_boundaries(cuda, hq, hkv, d, kind,
 @pytest.mark.parametrize("S", [4096, 32], ids=["splits", "one_split"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("hq,hkv,d", [(32, 32, 112), (8, 2, 64)])
+@pytest.mark.parametrize("hq,hkv,d", [(32, 32, 112), (8, 2, 64),
+                                      (4, 1, 256)])
 def test_dense_decode_kernel_across_split_boundaries(cuda, hq, hkv, d, dtype,
                                                      S):
     B = 8
@@ -279,8 +280,10 @@ def test_dense_decode_kernel_across_split_boundaries(cuda, hq, hkv, d, dtype,
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
 
 
+# gemma3-1b's 4 / 1 / 256 (its global layers) and granite-moe-3b-a800m's
+# 24 / 8 / 64 among them
 DENSE_SHAPES = [(8, 2, 64), (9, 3, 64), (16, 2, 128), (4, 4, 112),
-                (32, 32, 112)]
+                (32, 32, 112), (4, 1, 256), (24, 8, 64), (8, 2, 256)]
 
 
 def _dense_kv(dev, B, S, hkv, d, dtype, seed=2):
@@ -493,6 +496,31 @@ def test_dense_and_scan_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         ssd_scan(x, dt, A, Bm.cpu(), Bm, 16)
 
 
+@pytest.mark.parametrize("d", [256, 32, 96])
+def test_dense_wrappers_take_head_dim_256_and_refuse_32_and_96(cuda, d):
+    k, v = _dense_kv(cuda, 2, 64, 1, d, torch.bfloat16)
+    q = torch.randn((2, 4, d), device=cuda).to(torch.bfloat16)
+    ln = torch.tensor([20, 64], dtype=torch.int32, device=cuda)
+    if d != 256:
+        with pytest.raises(ValueError):
+            decode_attention(q, k, v, ln)
+        with pytest.raises(ValueError):
+            chunked_prefill_attention(q[:, None], k, v, 3)
+        return
+    before = (decode_attention.launches, chunked_prefill_attention.launches)
+    out = decode_attention(q, k, v, ln)
+    pre = chunked_prefill_attention(q[:, None], k, v, 3)
+    torch.cuda.synchronize()
+    assert (decode_attention.launches,
+            chunked_prefill_attention.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert (out.float() - decode_attention_ref(q, k, v, ln).float()
+            ).abs().max().item() <= TOL[torch.bfloat16]
+    assert (pre.float() - chunked_prefill_attention_ref(
+        q[:, None], k, v, 3).float()).abs().max().item() \
+        <= TOL[torch.bfloat16]
+
+
 def test_hybrid_executor_on_the_card_matches_itself_on_the_cpu(cuda):
     """Reduced zamba2 at the kernels' head dims (P 64, attention head dim
     112), float32, greedy: batched dense through the three kernels gives
@@ -669,14 +697,21 @@ def _captured_vs_uncaptured(ex, step):
 
 
 @pytest.mark.parametrize("kind", ["paged", "paged-int8", "dense-packed",
-                                  "dense-hybrid"])
+                                  "dense-hybrid", "dense-moe",
+                                  "dense-window"])
 def test_captured_step_equals_uncaptured(cuda, kind):
     """A replay writes the KV (and recurrent state) and returns the tokens
     that the step function run without a graph gives from the same cache,
     bit for bit: the paged horizon, the packed-dense horizon and the
-    full-slot-batch dense decode."""
+    full-slot-batch dense decode (zamba2, and reduced granite-moe-3b-a800m
+    and gemma3-1b, whose 37-token prompt wraps its 32-slot ring)."""
     if kind == "dense-hybrid":
         ex, _, reqs = _decoding(_zamba_cfg(), cuda)
+        step = _dense_step(ex, reqs, 1)
+    elif kind in ("dense-moe", "dense-window"):
+        arch = "granite-moe-3b-a800m" if kind == "dense-moe" else "gemma3-1b"
+        ex, _, reqs = _decoding(reduced_config(arch), cuda)
+        assert not ex.packed
         step = _dense_step(ex, reqs, 1)
     elif kind == "dense-packed":
         ex, _, reqs = _decoding(reduced_config("qwen2.5-3b"), cuda,
@@ -688,6 +723,40 @@ def test_captured_step_equals_uncaptured(cuda, kind):
         step = _paged_step(ex, reqs, 4)
     replayed, plain, after_replay, after_plain = \
         _captured_vs_uncaptured(ex, step)
+    for a, b in zip(replayed, plain):
+        assert torch.equal(a, b)
+    for n in after_plain:
+        assert torch.equal(after_replay[n], after_plain[n]), n
+
+
+@pytest.mark.parametrize("arch,layers", [("gemma3-1b", 6),
+                                         ("granite-moe-3b-a800m", 2)])
+def test_full_width_dense_decode_graph_equals_uncaptured(cuda, arch, layers):
+    """The full-slot-batch decode at the registered width in bf16 (depth
+    cut: gemma3-1b's first period, five ring layers of 1024 slots and one
+    global layer at head dim 256; granite's first two layers, 40 experts
+    top-8), three requests and an idle slot: the replay against the step
+    without a graph, tokens and KV bit for bit."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    ex = TorchExecutor(cfg, tf.init_params(7, cfg, cuda), n_slots=4,
+                       max_seq=2048, device=cuda)
+    inst = Instance(0, D_HEAVY, 512, CostModel(cfg, InstanceSpec(tp=1)), ex,
+                    hbm_blocks=512)
+    rng = np.random.default_rng(8)
+    reqs = [Request(prompt_len=m, max_new_tokens=64, hidden_output_len=64,
+                    prompt_tokens=list(map(int, rng.integers(
+                        1, cfg.vocab_size, size=m))))
+            for m in (1100, 300, 517)]
+    for r in reqs:
+        inst.enqueue_prefill(r)
+    now = 0.0
+    while any(r.output_len == 0 for r in reqs):
+        dur, done, _ = inst.run_iteration(now)
+        now += dur
+        for r in done:
+            inst.admit_decode(r)
+    replayed, plain, after_replay, after_plain = \
+        _captured_vs_uncaptured(ex, _dense_step(ex, reqs, 1))
     for a, b in zip(replayed, plain):
         assert torch.equal(a, b)
     for n in after_plain:

@@ -56,6 +56,14 @@ def copying_reference(monkeypatch):
     monkeypatch.setattr(jax_engine, "jnp", CopyingJnp())
 
 
+def scaled_err(got, ref):
+    """Largest gap between two logit arrays over the larger of 1 and the
+    reference's largest magnitude (the forward tests hold it to 2e-3)."""
+    ref = np.asarray(ref, np.float32)
+    return float(np.abs(np.asarray(got) - ref).max()
+                 / max(float(np.abs(ref).max()), 1.0))
+
+
 def both_params(cfg_jax, cfg_torch, seed=0):
     tree = numpy_params(cfg_jax, seed)
     return (jax.tree.map(jnp.asarray, tree),

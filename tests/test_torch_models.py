@@ -228,11 +228,17 @@ def test_dense_cache_and_cache_free_forward_match_reference():
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=2e-3)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "granite-moe-3b-a800m",
-                                  "whisper-base"])
+@pytest.mark.parametrize("arch", ["whisper-base", "llava-next-34b"])
 def test_unported_block_types_raise(arch):
-    with pytest.raises(NotImplementedError, match="not in the port yet"):
-        tf.init_params(0, reduced_config(arch), device="cpu")
+    """The encoder-decoder blocks (whisper) and image inputs (llava's
+    projector) raise and name the slice that brings them."""
+    cfg = reduced_config(arch)
+    with pytest.raises(NotImplementedError,
+                       match="not in the port yet.*next slice"):
+        params = tf.init_params(0, cfg, device="cpu")
+        tokens = torch.ones((1, 4), dtype=torch.long)
+        tf.forward(params, cfg, tokens, image_embeds=torch.zeros(
+            (1, cfg.num_image_tokens, cfg.vision_dim)))
 
 
 def test_hybrid_forward_matches_reference():

@@ -1,6 +1,7 @@
 """``--engine live`` of the port on the CPU (``--reduced --device cpu``):
-the launcher's streamed runs on smollm-135m (paged, K-step horizons) and
-zamba2-7b (dense, K = 1), greedy streams that do not depend on the
+the launcher's streamed runs on smollm-135m (paged, K-step horizons),
+zamba2-7b, granite-moe-3b-a800m and gemma3-1b (dense, K = 1), greedy
+streams that do not depend on the
 horizon or on the non-blocking pipeline, and a drain-and-flip mid-run
 that leaves every stream as an undisturbed run gives it."""
 import json
@@ -24,7 +25,8 @@ def _summary(out: str):
     return json.loads("\n".join(lines[at:]))
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "zamba2-7b",
+                                  "granite-moe-3b-a800m", "gemma3-1b"])
 def test_live_cli_streams_every_token(arch, capsys):
     serve.main(CPU + ["--arch", arch, "--n", "8"])
     st = _summary(capsys.readouterr().out)
@@ -33,7 +35,7 @@ def test_live_cli_streams_every_token(arch, capsys):
     assert st["host_readbacks"] > 0
     if arch == "smollm-135m":
         assert st["horizon_calls"] > 0 and st["horizon_tokens"] > 0
-    else:                    # recurrent state: no horizon, as the reference
+    else:                    # not packable: no horizon, as the reference
         assert st["horizon_calls"] == st["horizon_tokens"] == 0
 
 
@@ -70,7 +72,8 @@ def _streams(arch, *flags, n=8, flip=False):
             [r.output_tokens for r in loop.requests], loop)
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "zamba2-7b",
+                                  "granite-moe-3b-a800m", "gemma3-1b"])
 def test_live_streams_do_not_depend_on_horizon_or_pipeline(arch):
     prompts, base, _ = _streams(arch, "--horizon", "1", "--no-async")
     for flags in (("--horizon", "8"), ("--horizon", "8", "--no-async"),
