@@ -51,10 +51,12 @@ printing one JSON line; any failure raises and the process exits non-zero
                  from the same pool, tokens and KV bit for bit
   kernels_dense  the dense decode and dense chunked-prefill kernels
                  against their plain versions, at smollm-135m's,
-                 zamba2-7b's, gemma3-1b's (head dim 256) and
-                 granite-moe-3b-a800m's attention shapes (all but
-                 smollm-135m's in bf16 and float32; the bf16 prefill also
-                 at the D-heavy instance's 256-token chunk)
+                 zamba2-7b's, gemma3-1b's (head dim 256),
+                 granite-moe-3b-a800m's, whisper-base's (8 / 8 / 64 on
+                 its 448-token text context) and llava-next-34b's (56 / 8
+                 / 128, a group of 7; bf16) attention shapes (all but
+                 smollm-135m's and llava's in bf16 and float32; the bf16
+                 prefill also at the D-heavy instance's 256-token chunk)
   kernels_ssd    the SSD-scan kernel against its plain version: one slot's
                  1024-token prefill at zamba2-7b's and mamba2-1.3b's widths
                  in float32, and zamba2-7b's served prefills in bf16 (887
@@ -83,6 +85,32 @@ printing one JSON line; any failure raises and the process exits non-zero
                  the same for granite-moe-3b-a800m (40 experts top-8,
                  capacity shared by every row of a decode): 8 layers, then
                  full depth, prompts to 2048 tokens
+  model_whisper  whisper-base at full width and depth (6 ENC + 6 DEC
+                 layers), bf16, batch 4: 1500 audio frames from a seed
+                 through the encoder, a 64-token prompt through kernel 4,
+                 32 greedy decode steps through kernel 3; the same through
+                 the plain versions and in float32 (first tokens equal,
+                 float32 within 1e-4, the bf16 rule of ``phase_model``);
+                 ``full_prefill`` at chunk 16 against one-shot prefill
+  model_llava    llava-next-34b at full width cut to 12 layers, bf16,
+                 batch 2: ``full_prefill`` of 2880 image embeddings and
+                 1024 text tokens at chunk 512 (kernel 4 at a group of 7
+                 over 3392 tokens, then at prefix 3392), 16 decode steps
+                 (kernel 3); held as ``model_whisper``
+  train          qwen2.5-3b at full width and depth, bf16, remat: 10
+                 AdamW steps at batch 8 by 512 on synthetic LM batches;
+                 every loss and gradient norm finite, the last loss below
+                 the first, no kernel launched; ms a step, tokens/s, peak
+                 memory, the optimizer's share, model FLOPs a step over
+                 the bf16 peak
+  train_grad     ``train_loss``'s gradients on the card against the CPU
+                 (the one CPU computation of this script, labelled so),
+                 float32, qwen2.5-3b at full width cut to 2 layers and
+                 whisper-base in full: every leaf within 1e-3 of its
+                 largest value; a whisper-base step at full size with
+                 audio; a checkpoint round trip (one more step from the
+                 saved and the loaded state: losses bit-equal); the scan
+                 kernel refusing a CUDA input that requires grad
 
 ``python3 chip_smoke.py --scan-only [SERVED]`` runs only the build and
 ``kernels_ssd`` and, given a file holding an earlier run's
@@ -90,8 +118,9 @@ printing one JSON line; any failure raises and the process exits non-zero
 
 Then one line ``{"kernels": [...]}`` with, for every kernel of the port,
 its launches on the paths that run it (``live``, ``frontend`` and
-``tiers`` for the paged kernels, ``serve_zamba2``, ``serve_gemma3`` and
-``serve_moe`` for the dense ones; ``launches_by_path`` splits them), its error against the plain
+``tiers`` for the paged kernels, ``serve_zamba2``, ``serve_gemma3``,
+``serve_moe``, ``model_whisper`` and ``model_llava`` for the dense ones;
+``launches_by_path`` splits them), its error against the plain
 version and its time beside the plain version's, the card's bound and one
 library call; the card's name and power limit as ``nvidia-smi`` prints
 them; and last ``{"ok": true, "device": {...}}``.
@@ -140,6 +169,14 @@ from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.serving import ServingLoop, WallClock  # noqa: E402
 from repro_torch.sim.simulator import ServingConfig, build_cluster  # noqa: E402
 from repro_torch.sim.workload import LengthDist, WorkloadSpec  # noqa: E402
+from repro_torch.training.checkpoint import (load_checkpoint,  # noqa: E402
+                                             save_checkpoint)
+from repro_torch.training.optimizer import (AdamWConfig,  # noqa: E402
+                                            adamw_update, init_opt_state,
+                                            tree_leaves, tree_map)
+from repro_torch.training.train import (loss_and_grads,  # noqa: E402
+                                        make_train_step,
+                                        synthetic_lm_batches)
 
 DEV = "cuda"
 MODEL = "qwen2.5-3b"
@@ -162,6 +199,9 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # see phase_model
 MODEL_TOL_F32 = 1e-4
 MODEL_TOL_BF16_SLACK = 5e-3
+#: a gradient leaf on the card against the CPU, float32 without TF32:
+#: max |g_gpu - g_cpu| <= TRAIN_GRAD_RTOL max |g_cpu| + 1e-6
+TRAIN_GRAD_RTOL = 1e-3
 
 SHAPES = {   # name -> (Hq, Hkv, D, q dtype)
     "smollm-135m": (9, 3, 64, torch.float32),
@@ -179,6 +219,16 @@ DENSE_SHAPES = [   # (name, Hq, Hkv, D, q and cache dtype); zamba2-7b's
 ]
 GEMMA = "gemma3-1b"
 MOE = "granite-moe-3b-a800m"
+WHISPER = "whisper-base"
+LLAVA = "llava-next-34b"
+#: Whisper's text context (the decoder's max_seq) and its 30 s of audio at
+#: 50 frames a second, after the stubbed convolutional front end
+WHISPER_S = 448
+WHISPER_FRAMES = 1500
+#: llava-next-34b at full width, cut to this many of its 60 layers so that
+#: the float32 copy and the plain path's 3392 x 4096 scores fit one card
+LLAVA_LAYERS = 12
+LLAVA_S = 4096
 #: max_seq of the two dense families' caches (serve_gemma3's and
 #: serve_moe's): gemma3-1b's 1024-token ring wraps well inside it
 FAMILY_S = 4096
@@ -461,11 +511,7 @@ class plain_kernels:
 
 
 def _float_tree(tree):
-    if isinstance(tree, dict):
-        return {k: _float_tree(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_float_tree(v) for v in tree]
-    return tree.float()
+    return tree_map(lambda t: t.float(), tree)
 
 
 @torch.no_grad()
@@ -710,16 +756,7 @@ def raise_exec_error(inst, now, exc):
 
 
 def count_params(params):
-    def leaves(tree):
-        if isinstance(tree, dict):
-            for v in tree.values():
-                yield from leaves(v)
-        elif isinstance(tree, list):
-            for v in tree:
-                yield from leaves(v)
-        else:
-            yield tree
-    return sum(t.numel() for t in leaves(params))
+    return sum(t.numel() for t in tree_leaves(params))
 
 
 def check_finished(cfg, reqs, cluster):
@@ -1639,6 +1676,16 @@ def phase_kernels_dense():
         cases.append(check_dense_prefill(shape, 1, 1024, 1024, FAMILY_S))
         if shape[-1] == torch.bfloat16:
             cases.append(check_dense_prefill(shape, 1, 256, 768, FAMILY_S))
+    # whisper-base's decoder (8 / 8 / 64) on its 448-token text context,
+    # both types; llava-next-34b's 56 / 8 / 128 (a group of 7) in bf16
+    for dtype in (torch.bfloat16, torch.float32):
+        shape = (WHISPER, 8, 8, 64, dtype)
+        cases.append(check_dense_decode(
+            shape, [448, 1, 200, 64, 33, 448, 300, 129], WHISPER_S))
+        cases.append(check_dense_prefill(shape, 4, 64, 0, WHISPER_S))
+    shape = (LLAVA, 56, 8, 128, torch.bfloat16)
+    cases.append(check_dense_decode(shape, long_lengths, LLAVA_S))
+    cases.append(check_dense_prefill(shape, 1, 1024, 1024, LLAVA_S))
     emit("kernels_dense", cases=cases)
     cases += phase_kernels_ssd()
     torch.cuda.empty_cache()
@@ -1648,6 +1695,16 @@ def phase_kernels_dense():
 # ---------------------------------------------------------------------------
 # the dense families at full width: kernels vs plain versions
 # ---------------------------------------------------------------------------
+
+def scaled_err_lists(a, b):
+    """Largest gap between two lists of logit tensors, each over the larger
+    of 1 and the second's largest magnitude."""
+    worst = 0.0
+    for x, y in zip(a, b):
+        scale = max(y.abs().max().item(), 1.0)
+        worst = max(worst, (x - y).abs().max().item() / scale)
+    return worst
+
 
 @torch.no_grad()
 def check_model_dense(phase, cfg, chunks, pos1, active, max_seq):
@@ -1696,22 +1753,15 @@ def check_model_dense(phase, cfg, chunks, pos1, active, max_seq):
             assert torch.isfinite(o).all()
         return outs
 
-    def scaled_err(a, b):
-        worst = 0.0
-        for x, y in zip(a, b):
-            scale = max(y.abs().max().item(), 1.0)
-            worst = max(worst, (x - y).abs().max().item() / scale)
-        return worst
-
     bf_kernel = run(params, torch.bfloat16, plain=False)
     bf_plain = run(params, torch.bfloat16, plain=True)
     params32 = _float_tree(params)
     f32_kernel = run(params32, torch.float32, plain=False)
     f32_plain = run(params32, torch.float32, plain=True)
     del params32, params
-    err_f32 = scaled_err(f32_kernel, f32_plain)
-    err_kernel = scaled_err(bf_kernel, f32_plain)
-    err_plain = scaled_err(bf_plain, f32_plain)
+    err_f32 = scaled_err_lists(f32_kernel, f32_plain)
+    err_kernel = scaled_err_lists(bf_kernel, f32_plain)
+    err_plain = scaled_err_lists(bf_plain, f32_plain)
     agree = torch.cat([(a.argmax(-1) == b.argmax(-1)).float()
                        for a, b in zip(bf_kernel, f32_plain)])
     emit(phase, model=cfg.name, layers=cfg.num_layers,
@@ -1719,7 +1769,7 @@ def check_model_dense(phase, cfg, chunks, pos1, active, max_seq):
          attention_layers=n_kv, launches=want,
          f32_kernel_vs_plain=err_f32, f32_tol=MODEL_TOL_F32,
          bf16_kernel_vs_f32=err_kernel, bf16_plain_vs_f32=err_plain,
-         bf16_kernel_vs_bf16_plain=scaled_err(bf_kernel, bf_plain),
+         bf16_kernel_vs_bf16_plain=scaled_err_lists(bf_kernel, bf_plain),
          bf16_greedy_agreement_with_f32=agree.mean().item())
     assert err_f32 <= MODEL_TOL_F32, err_f32
     assert err_kernel <= 1.5 * err_plain + MODEL_TOL_BF16_SLACK, \
@@ -2018,6 +2068,338 @@ def phase_serve_moe(cfg, params):
 
 
 # ---------------------------------------------------------------------------
+# the encoder-decoder and VLM families: the model path at full width
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def check_model_modal(phase, cfg, prompt, embeds, chunk, steps, max_seq,
+                      cross_len=0):
+    """Random weights from seed 0; a prompt prefilled with its modality's
+    embeddings (``full_prefill`` at ``chunk``: the first chunk carries
+    them), then ``steps`` greedy decode steps, four ways as
+    ``phase_model``: bf16 through the kernels (its greedy tokens are fed
+    to the other three), bf16 through the plain versions, float32 through
+    both (the bf16 weights are freed first).  Held: the first token equal
+    on both paths in each type; float32 kernel against plain within
+    MODEL_TOL_F32; the bf16 kernel path no further from float32 than 1.5
+    times the plain path plus MODEL_TOL_BF16_SLACK; the launches the
+    layers call for, none on the plain path.  Returns (fields, the float32
+    parameters)."""
+    params = tf.init_params(0, cfg, device=DEV)
+    n_params = count_params(params)
+    B, S = prompt.shape
+    n_img = embeds.get("image_embeds", torch.empty(0, 0)).shape[1]
+    n_dec = sum(b in tf.KV_BLOCKS for b in tf.layer_types(cfg))
+    want = {"decode_attention": steps * n_dec,
+            "chunked_prefill_attention": S // chunk * n_dec}
+    forced = []
+
+    def run(prm, dtype, plain):
+        cache = tf.init_cache(cfg, B, max_seq, dtype=dtype, device=DEV,
+                              cross_len=cross_len)
+        n0 = launch_counts(DENSE_KERNELS)
+        with plain_kernels() if plain else contextlib.nullcontext():
+            lg, _ = tf.full_prefill(prm, cfg, prompt, cache, chunk,
+                                    **{k: v.to(dtype)
+                                       for k, v in embeds.items()})
+            outs = [lg.float()]
+            pos = torch.full((B,), n_img + S, device=DEV)
+            for i in range(steps):
+                if len(forced) == i:
+                    forced.append(lg.argmax(-1))
+                lg, _ = tf.decode_step(prm, cfg, forced[i][:, None], cache,
+                                       pos)
+                outs.append(lg.float())
+                pos = pos + 1
+        torch.cuda.synchronize()
+        n1 = launch_counts(DENSE_KERNELS)
+        got = {k: n1[k] - n0[k] for k in want}
+        assert got == ({k: 0 for k in want} if plain else want), got
+        assert outs[0].shape == (B, cfg.vocab_size)
+        for o in outs:
+            assert torch.isfinite(o).all()
+        return outs
+
+    bf_kernel = run(params, torch.bfloat16, plain=False)
+    bf_plain = run(params, torch.bfloat16, plain=True)
+    params32 = _float_tree(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_kernel = run(params32, torch.float32, plain=False)
+    f32_plain = run(params32, torch.float32, plain=True)
+    err_f32 = scaled_err_lists(f32_kernel, f32_plain)
+    err_kernel = scaled_err_lists(bf_kernel, f32_plain)
+    err_plain = scaled_err_lists(bf_plain, f32_plain)
+    first = {"bf16": bool(torch.equal(bf_kernel[0].argmax(-1),
+                                      bf_plain[0].argmax(-1))),
+             "f32": bool(torch.equal(f32_kernel[0].argmax(-1),
+                                     f32_plain[0].argmax(-1)))}
+    agree = torch.cat([(a.argmax(-1) == b.argmax(-1)).float()
+                       for a, b in zip(bf_kernel, f32_plain)])
+    fields = dict(
+        model=cfg.name, layers=cfg.num_layers,
+        layers_registered=get_config(cfg.name).num_layers,
+        parameters=n_params, batch=B,
+        prompt_tokens=S, image_tokens=n_img, cross_len=cross_len,
+        chunk=chunk, first_chunk_tokens=n_img + chunk, decode_steps=steps,
+        launches=want, first_token_equal=first,
+        f32_kernel_vs_plain=err_f32, f32_tol=MODEL_TOL_F32,
+        bf16_kernel_vs_f32=err_kernel, bf16_plain_vs_f32=err_plain,
+        bf16_kernel_vs_bf16_plain=scaled_err_lists(bf_kernel, bf_plain),
+        bf16_greedy_agreement_with_f32=agree.mean().item())
+    ok = (first["bf16"] and first["f32"] and err_f32 <= MODEL_TOL_F32
+          and err_kernel <= 1.5 * err_plain + MODEL_TOL_BF16_SLACK)
+    if not ok:
+        emit(phase, **fields)
+    assert first["bf16"] and first["f32"], first
+    assert err_f32 <= MODEL_TOL_F32, err_f32
+    assert err_kernel <= 1.5 * err_plain + MODEL_TOL_BF16_SLACK, \
+        (err_kernel, err_plain)
+    return fields, params32
+
+
+def phase_model_whisper():
+    """whisper-base at full width and depth (6 ENC + 6 DEC layers) in
+    bf16, batch 4: 1500 audio frames from a seed through the encoder,
+    a 64-token decoder prompt through kernel 4 (one chunk), 32 greedy
+    decode steps through kernel 3 on the 448-token text context; then, in
+    float32 through the kernels, the prompt in chunks of 16 against the
+    one-shot prefill."""
+    cfg = get_config(WHISPER)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(31)
+    B = 4
+    audio = torch.randn((B, WHISPER_FRAMES, cfg.d_model), device=DEV,
+                        generator=g)
+    prompt = torch.randint(1, cfg.vocab_size, (B, 64), device=DEV,
+                           generator=g)
+    fields, params32 = check_model_modal(
+        "model_whisper", cfg, prompt, {"audio_embeds": audio}, 64, 32,
+        WHISPER_S, WHISPER_FRAMES)
+    with torch.no_grad():
+        outs = []
+        n0 = launch_counts(DENSE_KERNELS)
+        for chunk in (64, 16):
+            cache = tf.init_cache(cfg, B, WHISPER_S, dtype=torch.float32,
+                                  device=DEV, cross_len=WHISPER_FRAMES)
+            lg, _ = tf.full_prefill(params32, cfg, prompt, cache, chunk,
+                                    audio_embeds=audio)
+            outs.append(lg.float())
+        n1 = launch_counts(DENSE_KERNELS)
+    chunked = scaled_err_lists([outs[1]], [outs[0]])
+    n_dec = cfg.num_layers
+    assert n1["chunked_prefill_attention"] - \
+        n0["chunked_prefill_attention"] == (1 + 64 // 16) * n_dec
+    emit("model_whisper", **fields, full_prefill_chunk16_vs_one_shot=chunked,
+         full_prefill_tol=MODEL_TOL_F32)
+    assert chunked <= MODEL_TOL_F32, chunked
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_model_llava():
+    """llava-next-34b at full width (d_model 7168, 56 / 8 heads of 128,
+    d_ff 20480, vision_dim 1152) cut to LLAVA_LAYERS layers, bf16, batch
+    2: ``full_prefill`` of 2880 image embeddings from a seed and 1024
+    text tokens at chunk 512 (the first chunk 3392 tokens through kernel 4
+    at a group of 7, the second at prefix 3392), then 16 decode steps
+    through kernel 3."""
+    cfg = dataclasses.replace(get_config(LLAVA), num_layers=LLAVA_LAYERS)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(32)
+    B = 2
+    image = torch.randn((B, cfg.num_image_tokens, cfg.vision_dim),
+                        device=DEV, generator=g)
+    prompt = torch.randint(1, cfg.vocab_size, (B, 1024), device=DEV,
+                           generator=g)
+    fields, params32 = check_model_modal(
+        "model_llava", cfg, prompt, {"image_embeds": image}, 512, 16,
+        LLAVA_S)
+    del params32
+    emit("model_llava", **fields,
+         weight_bytes_bf16=2 * fields["parameters"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _cuda_ms(fn):
+    """(result, device milliseconds) of ``fn()`` between two CUDA events."""
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def phase_train():
+    """qwen2.5-3b at full width and depth, bf16 parameters, ``cfg.remat``
+    on: 10 steps of ``train_loop``'s step (AdamW, ``total_steps`` 10,
+    ``warmup_steps`` 1, as ``train_loop`` sets them) at batch 8 by 512 on
+    ``synthetic_lm_batches``.  Held: every loss and gradient norm finite,
+    the last loss below the first, no kernel launched (training runs
+    without a cache).  Reported: ms a step (first, steady), tokens/s, peak
+    device memory, the optimizer's share of a step, and the step's
+    model FLOPs over its time as a share of the bf16 peak."""
+    cfg = get_config(MODEL)
+    assert cfg.remat
+    B, T, steps = 8, 512, 10
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_params(0, cfg, device=DEV)
+    n_params = count_params(params)
+    opt_cfg = AdamWConfig(total_steps=steps, warmup_steps=max(steps // 20, 1))
+    opt_state = init_opt_state(params)
+    step_fn = make_train_step(cfg, opt_cfg)
+    data = synthetic_lm_batches(cfg, B, T, seed=0, device=DEV)
+    batches = [next(data) for _ in range(steps)]
+    reset_counts(DENSE_KERNELS + PAGED_KERNELS)
+    losses, norms, ms = [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        _, _, m = step_fn(params, opt_state, b)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        ms.append(1e3 * (time.perf_counter() - t0))
+    launched = launch_counts(DENSE_KERNELS + PAGED_KERNELS)
+    peak = torch.cuda.max_memory_allocated()
+    # the optimizer alone, on the last batch's gradients (a few more
+    # updates of parameters nobody reads after)
+    _, grads = loss_and_grads(params, cfg, batches[-1])
+    opt_ms = [_cuda_ms(lambda: adamw_update(opt_cfg, params, grads,
+                                            opt_state))[1]
+              for _ in range(3)]
+    del grads
+    steady = sum(ms[2:]) / len(ms[2:])
+    tokens = B * T
+    L, hq, d = cfg.num_layers, cfg.num_heads, cfg.head_dim
+    attn_fwd = 4.0 * B * T * T * hq * d * L    # QK^T and PV, full squares
+    layer_params = n_params - 2 * cfg.vocab_size * cfg.d_model
+    flops = (6.0 * n_params * tokens + 3 * attn_fwd
+             + 2.0 * layer_params * tokens + attn_fwd)
+    fields = dict(
+        model=cfg.name, layers=cfg.num_layers, parameters=n_params,
+        remat=cfg.remat, batch=B, seq=T, steps=steps, losses=losses,
+        grad_norms=norms, step_ms=ms, first_step_ms=ms[0],
+        steady_step_ms=steady, tokens_per_s=1e3 * tokens / steady,
+        peak_device_bytes=peak, optimizer_ms=sum(opt_ms) / len(opt_ms),
+        optimizer_share=sum(opt_ms) / len(opt_ms) / steady,
+        kernel_launches=launched, model_flops_a_step=flops,
+        model_flops_share_of_bf16_peak=flops / (steady * 1e-3)
+        / PEAK_FLOPS[torch.bfloat16])
+    emit("train", **fields)
+    assert all(np.isfinite(losses)) and all(np.isfinite(norms))
+    assert losses[-1] < losses[0], losses
+    assert not any(launched.values()), launched
+    del params, opt_state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _grad_gaps(gpu, cpu):
+    """Per leaf max |g_gpu - g_cpu| over max |g_cpu|, and whether every
+    leaf keeps max |g_gpu - g_cpu| <= TRAIN_GRAD_RTOL max |g_cpu| + 1e-6."""
+    worst, ok = 0.0, True
+    for a, b in zip(tree_leaves(gpu), tree_leaves(cpu)):
+        gap = (a.float().cpu() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        ok = ok and gap <= TRAIN_GRAD_RTOL * scale + 1e-6
+        worst = max(worst, gap / max(scale, 1e-30))
+    return worst, ok
+
+
+def _to_device(tree, dev):
+    return tree_map(lambda t: t.detach().to(dev), tree)
+
+
+def phase_train_grad():
+    """The gradient's oracle: ``train_loss`` and its gradients on the card
+    against the same code on the CPU (labelled: the one CPU computation of
+    this script), float32, batch 2 by 128, for qwen2.5-3b at full width cut
+    to 2 layers and whisper-base in full (1500 audio frames).  Then one
+    whisper-base train step at full size in bf16 (batch 4 by 448, audio),
+    a checkpoint round trip (save, load, one more step from each: losses
+    bit-equal), and the SSD scan refusing a CUDA input that requires
+    grad."""
+    out = {}
+    for name, cfg in (
+            ("qwen2.5-3b", dataclasses.replace(get_config(MODEL),
+                                               num_layers=2, dtype="float32")),
+            (WHISPER, dataclasses.replace(get_config(WHISPER),
+                                          dtype="float32"))):
+        params_cpu = tf.init_params(0, cfg, device="cpu")
+        batch = next(synthetic_lm_batches(cfg, 2, 128, seed=1, device="cpu"))
+        if cfg.family == "audio":
+            gen = torch.Generator().manual_seed(33)
+            batch["audio_embeds"] = torch.randn(
+                (2, WHISPER_FRAMES, cfg.d_model), generator=gen)
+        params_gpu = _to_device(params_cpu, DEV)
+        loss_gpu, g_gpu = loss_and_grads(params_gpu, cfg,
+                                         _to_device(batch, DEV))
+        t0 = time.perf_counter()
+        loss_cpu, g_cpu = loss_and_grads(params_cpu, cfg, batch)
+        cpu_s = time.perf_counter() - t0
+        worst, ok = _grad_gaps(g_gpu, g_cpu)
+        out[name] = {"layers": cfg.num_layers, "loss_gpu": loss_gpu.item(),
+                     "loss_cpu_oracle": loss_cpu.item(),
+                     "grad_leaves": len(tree_leaves(g_cpu)),
+                     "worst_leaf_gap_over_max": worst, "held": ok,
+                     "cpu_oracle_seconds": cpu_s}
+        del params_cpu, params_gpu, g_gpu, g_cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    # whisper-base at full size in bf16: a step, then a checkpoint round
+    # trip
+    cfg = get_config(WHISPER)
+    params = tf.init_params(0, cfg, device=DEV)
+    batch = next(synthetic_lm_batches(cfg, 4, 448, seed=2, device=DEV))
+    g = torch.Generator(device=DEV)
+    g.manual_seed(34)
+    batch["audio_embeds"] = torch.randn((4, WHISPER_FRAMES, cfg.d_model),
+                                        device=DEV, generator=g)
+    opt_cfg = AdamWConfig(total_steps=10, warmup_steps=1)
+    step_fn = make_train_step(cfg, opt_cfg)
+    opt_state = init_opt_state(params)
+    (_, _, m0), step_ms = _cuda_ms(lambda: step_fn(params, opt_state, batch))
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_ckpt", "whisper.npz")
+    save_checkpoint(path, params, opt_state, meta={"arch": cfg.name})
+    template = tf.init_params(1, cfg, device=DEV)
+    p2, s2 = load_checkpoint(path, template, init_opt_state(template))
+    params_equal = all(torch.equal(a.detach(), b)
+                       for a, b in zip(tree_leaves(params), tree_leaves(p2)))
+    _, _, m1 = step_fn(params, opt_state, batch)
+    _, _, m2 = step_fn(p2, s2, batch)
+    ckpt = {"params_bit_equal": params_equal,
+            "loss_saved": m1["loss"].item(), "loss_loaded": m2["loss"].item()}
+    # the scan kernel refuses a gradient it cannot carry
+    x, dt, A, B, C, s0 = ssd_inputs(4, 64, 16, 64, torch.float32)
+    try:
+        ssd_ops.ssd_scan(x.requires_grad_(True), dt, A, B, C, 64, s0)
+        refused = ""
+    except RuntimeError as e:
+        refused = str(e)
+    emit("train_grad", oracle="cpu", tol_rtol=TRAIN_GRAD_RTOL, tol_atol=1e-6,
+         models=out, whisper_step={"batch": 4, "seq": 448,
+                                   "audio_frames": WHISPER_FRAMES,
+                                   "loss": m0["loss"].item(),
+                                   "grad_norm": m0["grad_norm"].item(),
+                                   "ms": step_ms},
+         checkpoint=ckpt, ssd_scan_refuses_grad=refused)
+    assert all(v["held"] for v in out.values()), out
+    assert np.isfinite(m0["loss"].item()) and \
+        np.isfinite(m0["grad_norm"].item())
+    assert params_equal and ckpt["loss_saved"] == ckpt["loss_loaded"], ckpt
+    assert "no backward" in refused, refused
+    del params, p2, template, opt_state, s2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 #: kernel -> (source, the TPU kernel's pl.pallas_call it replaces, the
 #: case of the kernels phases at the main path's shape)
@@ -2176,6 +2558,15 @@ def main(argv):
         del fparams
         gc.collect()
         torch.cuda.empty_cache()
+
+    for phase, fn in (("model_whisper", phase_model_whisper),
+                      ("model_llava", phase_model_llava)):
+        reset_counts(DENSE_KERNELS)
+        fn()
+        by_path[phase] = launch_counts(("decode_attention",
+                                        "chunked_prefill_attention"))
+    phase_train()
+    phase_train_grad()
 
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels_line(cases, by_path)}), flush=True)

@@ -256,6 +256,13 @@ class TorchExecutor:
                 "(pass device='cpu' to run the plain versions on the CPU)")
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant: {kv_quant!r}")
+        if cfg.family in ("audio", "vlm"):
+            raise ValueError(
+                f"TorchExecutor does not serve {cfg.name}: the {cfg.family} "
+                "family takes audio or image embeddings, which no request "
+                "of the engine carries; its model path serves it "
+                "(models/transformer.py: prefill, full_prefill, "
+                "decode_step)")
         self.cfg = cfg
         self.params = params
         self.n_slots = n_slots

@@ -55,15 +55,24 @@ def ssd_scan(x, dt, A, B, C, chunk: int, init_state=None):
     Requires t % chunk == 0.
 
     A CUDA tensor launches the kernel (or raises: p must be 64, n one of
-    16/32/64/128, chunk at most 256, x float32 or bfloat16); only a CPU
-    tensor goes to the plain version.  dt, B and C in x's type are read as
-    they are; where one is not, the kernel runs on float32 copies of all
-    four, as the plain version computes.  One launch is counted a call,
-    however many the kernel makes (one for each 1024 tokens)."""
+    16/32/64/128, chunk at most 256, x float32 or bfloat16; and while grad
+    mode is on and an input requires grad, as the kernel has no backward);
+    only a CPU tensor goes to the plain version, which is differentiable.
+    dt, B and C in x's type are read as they are; where one is not, the
+    kernel runs on float32 copies of all four, as the plain version
+    computes.  One launch is counted a call, however many the kernel
+    makes (one for each 1024 tokens)."""
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, B, C, chunk, init_state)
     if x.device.type != "cuda":
         raise RuntimeError(f"unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(
+            a is not None and a.requires_grad
+            for a in (x, dt, A, B, C, init_state)):
+        raise RuntimeError(
+            "ssd_scan: the CUDA kernel has no backward, so a gradient "
+            "through it would be dropped; Mamba2 layers train on the CPU "
+            "until the kernel's backward lands (ROADMAP.md queue A item 9)")
     b, t, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     if x.dtype not in _DTYPE_CODE:

@@ -18,8 +18,9 @@ the registered width; ``--reduced`` serves the small test variant and
 paged executor path; Mamba2, hybrid, MoE and sliding-window archs
 (mamba2-1.3b, zamba2-7b, granite-moe-3b-a800m, arctic-480b, gemma3-1b)
 the batched dense one, as ``engine.packable`` decides (and only the
-former fuse decode horizons).  Encoder-decoder and VLM archs are not in
-the port yet.
+former fuse decode horizons).  The encoder-decoder and VLM archs
+(whisper-base, llava-next-34b) are served by their model path, not by the
+engine, whose requests carry no audio or image embeddings.
 
 ``--serve HOST:PORT`` puts the same live loop behind the OpenAI-compatible
 HTTP/SSE front end (``repro_torch.frontend``): ``POST /v1/completions``

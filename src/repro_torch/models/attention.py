@@ -1,5 +1,6 @@
-"""GQA attention with KV-cache support for chunked-prefill / decode — the
-reference's ``models/attention.py`` without cross-attention.
+"""GQA attention with KV-cache support for train / chunked-prefill /
+decode, cross-attention and the encoder's bidirectional attention — the
+reference's ``models/attention.py``.
 
 Cache layout per attention layer: ``{"k": [B, S, Hkv, Dh], "v": ...}``
 (dense) or ``{"k": [P + 1, Hkv, Dh], "v": ...}`` (paged block pool, see
@@ -18,8 +19,10 @@ prefill over a per-row cache: on a CUDA tensor they launch the kernel,
 on a CPU tensor they take the plain version.  A dense chunk padded to a
 common length (``valid_len`` with T > 1) is the one read left to a
 masked softmax, as in the reference, and so is the sliding-window read
-(no Pallas kernel of the reference computes it).  Cross-attention belongs
-to the slice that ports the encoder-decoder and VLM families.
+(no Pallas kernel of the reference computes it).  The other reads no
+Pallas kernel of the reference computes are plain PyTorch too: the
+cache-free (training) path, cross-attention over a precomputed encoder
+KV, and the encoder's bidirectional self-attention.
 """
 from __future__ import annotations
 
@@ -361,8 +364,42 @@ def _paged_attention(p, cfg, x, q, k, v, positions, cache, block_tables,
     return out, cache
 
 
+def init_cross_attention(gen: torch.Generator, cfg):
+    return init_attention(gen, cfg, rope=False)
+
+
 def cross_attention(p, cfg, x, kv, kv_valid=None):
-    raise NotImplementedError(
-        "cross-attention is not in the port yet: it comes with the next "
-        "slice, which ports the encoder-decoder (whisper) and VLM (llava) "
-        "families")
+    """x [B,T,d] attends over precomputed cross KV {k,v} [B,S,Hkv,D]: no
+    RoPE, no causality; ``kv_valid`` [B,S] bool masks keys.  Over S = 0
+    keys (a cross cache nothing has written) the output is zero."""
+    q, _, _ = _project_qkv(p, cfg, x)
+    scores = _gqa_scores(q, kv["k"])
+    if kv_valid is None:
+        mask = torch.ones(scores.shape[-2:], dtype=torch.bool,
+                          device=x.device)[None, None, None]
+    else:
+        mask = kv_valid[:, None, None, None, :]
+    probs = _masked_softmax(scores, mask)
+    return _gqa_out(probs.to(x.dtype), kv["v"], p["wo"])
+
+
+def project_cross_kv(p, cfg, enc_out):
+    """Cross-attention KV from the encoder output, computed once a
+    prefill: {k, v} [B, S, Hkv, D]."""
+    B, S, _ = enc_out.shape
+    hkv, dh = cfg.num_kv_heads, cfg.head_dim
+    k = enc_out @ p["wk"]
+    v = enc_out @ p["wv"]
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return {"k": k.reshape(B, S, hkv, dh), "v": v.reshape(B, S, hkv, dh)}
+
+
+def encoder_attention(p, cfg, x, positions, rope_cs=None):
+    """The encoder's bidirectional self-attention: RoPE at ``positions``
+    [B,S] (the frames' ``arange``), no mask, the softmax in float32."""
+    q, k, v = _project_qkv(p, cfg, x)
+    q = apply_rope(q, positions, cfg.rope_theta, rope_cs)
+    k = apply_rope(k, positions, cfg.rope_theta, rope_cs)
+    probs = torch.softmax(_gqa_scores(q, k).float(), dim=-1)
+    return _gqa_out(probs.to(x.dtype), v, p["wo"])

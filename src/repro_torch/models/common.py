@@ -1,4 +1,5 @@
-"""Shared PyTorch building blocks: init helper, RMSNorm, RoPE, SwiGLU."""
+"""Shared PyTorch building blocks: init helper, RMSNorm, RoPE, SwiGLU and
+the cross-entropy loss."""
 from __future__ import annotations
 
 import torch
@@ -81,3 +82,21 @@ def mlp(params, x):
     u = x @ params["w_up"]
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
     return h @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits, labels, mask=None):
+    """Mean cross-entropy over valid positions, in float32.  logits [...,
+    V], labels [...] integer, mask [...] or None (every position valid);
+    the divisor is the mask's sum floored at 1."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

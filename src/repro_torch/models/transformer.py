@@ -1,6 +1,6 @@
-"""Decoder stack of the port — the decoder-only block types (ATTN,
-ATTN_LOCAL, MOE, MAMBA2, ZAMBA_ATTN) of the reference's
-``models/transformer.py``.
+"""The model stack of the port — every block type (ATTN, ATTN_LOCAL,
+MOE, MAMBA2, ZAMBA_ATTN, and the encoder-decoder's ENC and DEC) of the
+reference's ``models/transformer.py``.
 
 Entry points (plain functions on dicts of tensors):
 
@@ -8,68 +8,62 @@ Entry points (plain functions on dicts of tensors):
   init_cache(cfg, batch, max_seq, ...)        -> dense cache
   init_paged_cache(cfg, num_blocks, bs, ...)  -> block-pool cache
   forward(params, cfg, tokens, positions, cache, ...) -> (out, cache, aux)
+  prefill / decode_step / full_prefill        -> (last logits, cache)
+  train_loss(params, cfg, batch)              -> scalar loss
 
 Parameters are ``{"embed", "lm_head", "final_norm", "layers": [block,
 ...]}`` with one block dict a layer, in execution order, plus
 ``"shared_attn"`` for the hybrid family (zamba2: one attention block whose
-weights every ZAMBA_ATTN layer shares).  The reference stacks each pattern
-position over its scan periods, and ``repro_torch.convert.params_from_jax``
-un-stacks that layout into this one.  A Python loop over the layers stands
-where the reference scans.
+weights every ZAMBA_ATTN layer shares) and ``"projector"`` [vision_dim,
+d_model] for the VLM family (llava: image embeddings are projected and
+prepended to the text).  The audio family's ENC layers sit at the head of
+``"layers"``, before its DEC layers, as the reference's segments order
+them; they run over ``audio_embeds``, not over the text stream.  The
+reference stacks each pattern position over its scan periods, and
+``repro_torch.convert.params_from_jax`` un-stacks that layout into this
+one.  A Python loop over the layers stands where the reference scans.
 
 A cache is a dict of tensors stacked over the layers that hold them:
 ``"k"``/``"v"`` over the full-cache attention layers (ATTN, MOE,
 ZAMBA_ATTN), ``"k_local"``/``"v_local"`` over the sliding-window ones
 (ATTN_LOCAL: ring buffers of ``min(window, max_seq)`` slots),
 ``"conv"``/``"ssm"`` over the recurrent ones (MAMBA2, ZAMBA_ATTN; ``ssm``
-is float32).  Layer ``l`` works on views of its entries and UPDATES THEM
-IN PLACE, where the reference threads a donated buffer through its scan.
-``forward`` returns the same cache object.
+is float32), ``"ck"``/``"cv"`` (the cross-attention KV of the encoder's
+output) over the DEC layers.  Layer ``l`` works on views of its entries
+and UPDATES THEM IN PLACE, where the reference threads a donated buffer
+through its scan.  ``forward`` returns the same cache object.
 
-Encoder-decoder blocks and the VLM projector (image inputs) raise and name
-the slice that brings them.
+Training runs ``forward`` without a cache; where ``cfg.remat`` holds and
+grad is on, each layer runs under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint`` of each scan period).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (dense_init, init_mlp, mlp, rms_norm,
-                                       rope_tables)
-from repro_torch.models.config import (ATTN, ATTN_LOCAL, MAMBA2, MOE,
-                                       ZAMBA_ATTN, ModelConfig)
+                                       rope_tables, softmax_xent)
+from repro_torch.models.config import (ATTN, ATTN_LOCAL, DEC, ENC, MAMBA2,
+                                       MOE, ZAMBA_ATTN, ModelConfig)
 
 #: block types whose layers hold full-cache attention KV, a ring buffer,
-#: recurrent state
-KV_BLOCKS = (ATTN, MOE, ZAMBA_ATTN)
+#: recurrent state, cross-attention KV
+KV_BLOCKS = (ATTN, MOE, ZAMBA_ATTN, DEC)
 RING_BLOCKS = (ATTN_LOCAL,)
 STATE_BLOCKS = (MAMBA2, ZAMBA_ATTN)
-PORTED = (ATTN, ATTN_LOCAL, MOE, MAMBA2, ZAMBA_ATTN)
-_NEXT_SLICE = ("the next slice, which ports the encoder-decoder (whisper) "
-               "and VLM (llava) families")
-
-
-def _unported(btype: str):
-    return NotImplementedError(
-        f"block type {btype!r} is not in the port yet: decoder-only "
-        "stacks (full and sliding-window attention, MoE, Mamba2, zamba2) "
-        f"are; encoder-decoder blocks come with {_NEXT_SLICE}")
+CROSS_BLOCKS = (DEC,)
 
 
 def layer_types(cfg: ModelConfig):
     """Block type of every layer, in execution order."""
     return [b for seg in cfg.segments() for _ in range(seg.n_periods)
             for b in seg.pattern]
-
-
-def _check_ported(cfg: ModelConfig):
-    for b in layer_types(cfg):
-        if b not in PORTED:
-            raise _unported(b)
 
 
 def kv_leaves(btype: str):
@@ -102,7 +96,7 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, btype: str):
     d = cfg.d_model
     zeros = lambda: torch.zeros((d,), dtype=cfg.param_dtype,
                                 device=gen.device)
-    if btype in (ATTN, ATTN_LOCAL):
+    if btype in (ATTN, ATTN_LOCAL, ENC):
         return {"ln1": zeros(), "attn": attn_lib.init_attention(gen, cfg),
                 "ln2": zeros(), "mlp": init_mlp(gen, d, cfg.d_ff,
                                                 cfg.param_dtype)}
@@ -120,7 +114,13 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, btype: str):
         if btype == ZAMBA_ATTN:
             p["ln_attn"] = zeros()
         return p
-    raise _unported(btype)
+    if btype == DEC:
+        return {"ln1": zeros(), "attn": attn_lib.init_attention(gen, cfg),
+                "ln_x": zeros(),
+                "xattn": attn_lib.init_cross_attention(gen, cfg),
+                "ln2": zeros(), "mlp": init_mlp(gen, d, cfg.d_ff,
+                                                cfg.param_dtype)}
+    raise ValueError(btype)
 
 
 def init_params(seed: int, cfg: ModelConfig, device="cuda"):
@@ -128,7 +128,6 @@ def init_params(seed: int, cfg: ModelConfig, device="cuda"):
     ``seed`` on ``device`` (the draws differ from the reference's, which
     come from ``jax.random``; parity tests convert the reference's
     parameters instead of re-drawing)."""
-    _check_ported(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d, V = cfg.d_model, cfg.vocab_size
@@ -140,6 +139,9 @@ def init_params(seed: int, cfg: ModelConfig, device="cuda"):
     }
     if cfg.family == "hybrid":
         params["shared_attn"] = attn_lib.init_attention(gen, cfg)
+    if cfg.family == "vlm":
+        params["projector"] = dense_init(gen, (cfg.vision_dim, d),
+                                         cfg.param_dtype)
     params["layers"] = [_init_block(gen, cfg, b) for b in layer_types(cfg)]
     return params
 
@@ -149,24 +151,27 @@ def init_params(seed: int, cfg: ModelConfig, device="cuda"):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
-               device="cuda"):
+               device="cuda", cross_len: int = 0):
     """Dense per-row cache.  ``{"k", "v"}`` each [L_kv, batch, max_seq,
     Hkv, Dh] over the full-cache attention layers, ``{"k_local",
     "v_local"}`` each [L_ring, batch, min(window, max_seq), Hkv, Dh] over
-    the sliding-window ones, and ``{"conv": [L_state, batch, k-1, C_in],
-    "ssm": [L_state, batch, H, P, N] float32}`` over the recurrent layers;
-    a family holds only the entries it uses."""
-    _check_ported(cfg)
+    the sliding-window ones, ``{"conv": [L_state, batch, k-1, C_in],
+    "ssm": [L_state, batch, H, P, N] float32}`` over the recurrent layers
+    and ``{"ck", "cv"}`` each [L_dec, batch, cross_len, Hkv, Dh] over the
+    DEC layers (``cross_len``: the encoder's frames); a family holds only
+    the entries it uses."""
     dtype = dtype or cfg.param_dtype
     types = layer_types(cfg)
     n_kv = sum(b in KV_BLOCKS for b in types)
     n_ring = sum(b in RING_BLOCKS for b in types)
     n_state = sum(b in STATE_BLOCKS for b in types)
+    n_cross = sum(b in CROSS_BLOCKS for b in types)
     cache = {}
     for n, names, seq in (
             (n_kv, kv_leaves(ATTN), max_seq),
             (n_ring, kv_leaves(ATTN_LOCAL),
-             min(cfg.sliding_window or max_seq, max_seq))):
+             min(cfg.sliding_window or max_seq, max_seq)),
+            (n_cross, ("ck", "cv"), cross_len)):
         if n:
             shape = (n, batch, seq, cfg.num_kv_heads, cfg.head_dim)
             for name in names:
@@ -223,10 +228,17 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
 # ---------------------------------------------------------------------------
 
 def _apply_block(btype, bp, cfg, x, positions, cache, shared_attn,
-                 valid_len=None, block_tables=None, rope_cs=None,
-                 write_dest=None):
+                 enc_out=None, valid_len=None, block_tables=None,
+                 rope_cs=None, write_dest=None):
     """Returns (x, aux loss or None); ``cache`` (this layer's views) is
     updated in place."""
+    if btype == ENC:
+        # bidirectional over the encoder's frames; no cache
+        h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+        x = x + attn_lib.encoder_attention(bp["attn"], cfg, h, positions,
+                                           rope_cs)
+        h = rms_norm(x, bp["ln2"], cfg.norm_eps)
+        return x + mlp(bp["mlp"], h), None
     if btype in (ATTN, ATTN_LOCAL):
         h = rms_norm(x, bp["ln1"], cfg.norm_eps)
         a, _ = attn_lib.self_attention(
@@ -269,7 +281,32 @@ def _apply_block(btype, bp, cfg, x, positions, cache, shared_attn,
             h = rms_norm(x, bp["ln2"], cfg.norm_eps)
             x = x + mlp(bp["mlp"], h)
         return x, None
-    raise _unported(btype)
+    if btype == DEC:
+        # causal self-attention over the text (through the kernels where
+        # there is a cache), then cross-attention over the encoder's KV:
+        # projected from ``enc_out`` where the audio came with this call
+        # (and written into the cache), else read from the cache
+        h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+        kvc = ({"k": cache["k"], "v": cache["v"]}
+               if cache is not None else None)
+        a, _ = attn_lib.self_attention(bp["attn"], cfg, h, positions, kvc,
+                                       rope_cs=rope_cs)
+        x = x + a
+        h = rms_norm(x, bp["ln_x"], cfg.norm_eps)
+        if enc_out is not None:
+            ckv = attn_lib.project_cross_kv(bp["xattn"], cfg, enc_out)
+            if cache is not None:
+                cache["ck"].copy_(ckv["k"])
+                cache["cv"].copy_(ckv["v"])
+        elif cache is not None:
+            ckv = {"k": cache["ck"], "v": cache["cv"]}
+        else:
+            raise ValueError("a DEC layer needs audio_embeds or a cache "
+                             "holding the cross-attention KV")
+        x = x + attn_lib.cross_attention(bp["xattn"], cfg, h, ckv)
+        h = rms_norm(x, bp["ln2"], cfg.norm_eps)
+        return x + mlp(bp["mlp"], h), None
+    raise ValueError(btype)
 
 
 # ---------------------------------------------------------------------------
@@ -279,10 +316,16 @@ def _apply_block(btype, bp, cfg, x, positions, cache, shared_attn,
 def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
             image_embeds=None, audio_embeds=None, compute_logits=True,
             valid_len=None, block_tables=None):
-    """tokens: [B, T] integer.  positions: [B, T] absolute positions
+    """tokens: [B, T] integer.  positions: [B, T'] absolute positions
     (defaults to arange).  cache: from ``init_cache`` /
-    ``init_paged_cache``, or None for full-context.
+    ``init_paged_cache``, or None for full-context (training).
 
+    image_embeds: [B, S_img, vision_dim] (VLM prefill): projected and
+    prepended to the text, so T' = S_img + T.
+    audio_embeds: [B, S_frames, d_model] (audio prefill): the ENC layers
+    run over them once and every DEC layer attends over their projection
+    (written into the cache's ``ck``/``cv``); without them the ENC layers
+    are skipped and the DEC layers read the cache's cross KV.
     valid_len: [B] per-row valid token counts for T-padded batched
     prefill; padding KV writes are dropped so the cache stays exactly
     sequential.  With T == 1 it is a row mask: rows with 0 write no KV and
@@ -292,22 +335,28 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
     cache is a paged block pool and every row addresses its KV through
     its block table.
 
-    Returns (logits [B, T, V] or hidden, cache, aux_loss); the cache is
+    Returns (logits [B, T', V] or hidden, cache, aux_loss); the cache is
     updated in place and returned as the same object; aux_loss is the sum
     of the MoE layers' load-balance losses (float32, 0 without MoE).
     """
-    if image_embeds is not None or audio_embeds is not None:
-        raise NotImplementedError(
-            f"image/audio inputs are not in the port yet: they come with "
-            f"{_NEXT_SLICE}")
-    B, T = tokens.shape
+    B = tokens.shape[0]
     x = params["embed"][tokens]
+    if image_embeds is not None:
+        img = image_embeds.to(x.dtype) @ params["projector"]
+        x = torch.cat([img, x], dim=1)
+    T = x.shape[1]
     if positions is None:
-        positions = torch.arange(T, device=tokens.device)[None].expand(B, T)
+        positions = torch.arange(T, device=x.device)[None].expand(B, T)
     # shared by every layer: RoPE tables and, for a paged pool, the pool
     # slot of every new token
     rope_cs = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
                if cfg.num_heads else None)
+    enc = enc_pos = enc_rope = None
+    if audio_embeds is not None:
+        enc = audio_embeds.to(x.dtype)
+        S = enc.shape[1]
+        enc_pos = torch.arange(S, device=x.device)[None].expand(B, S)
+        enc_rope = rope_tables(enc_pos, cfg.head_dim, cfg.rope_theta)
     write_dest = None
     if block_tables is not None:
         tables, bs = block_tables
@@ -315,9 +364,19 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
             positions, tables, bs, cache["k"].shape[1] - 1, valid_len)
     shared_attn = params.get("shared_attn")
     paged = block_tables is not None
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_cross = 0
     for btype, bp, (kv_i, st_i) in zip(layer_types(cfg), params["layers"],
                                        cache_slots(cfg)):
+        if btype == ENC:
+            if enc is not None:
+                run = lambda h, bp=bp: _apply_block(
+                    ENC, bp, cfg, h, enc_pos, None, None,
+                    rope_cs=enc_rope)[0]
+                enc = (checkpoint(run, enc, use_reentrant=False) if remat
+                       else run(enc))
+            continue
         if cache is None:
             lc = None
         elif paged:
@@ -329,9 +388,14 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
                 lc["k"], lc["v"] = cache[kn][kv_i], cache[vn][kv_i]
             if st_i is not None:
                 lc["conv"], lc["ssm"] = cache["conv"][st_i], cache["ssm"][st_i]
-        x, block_aux = _apply_block(btype, bp, cfg, x, positions, lc,
-                                    shared_attn, valid_len, block_tables,
-                                    rope_cs, write_dest)
+            if btype in CROSS_BLOCKS:
+                lc["ck"], lc["cv"] = cache["ck"][n_cross], cache["cv"][n_cross]
+                n_cross += 1
+        run = lambda h, btype=btype, bp=bp, lc=lc: _apply_block(
+            btype, bp, cfg, h, positions, lc, shared_attn, enc, valid_len,
+            block_tables, rope_cs, write_dest)
+        x, block_aux = (checkpoint(run, x, use_reentrant=False) if remat
+                        else run(x))
         if block_aux is not None:
             aux = aux + block_aux
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -342,12 +406,32 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
 
 
 # ---------------------------------------------------------------------------
-# Convenience entry points used by engine / launchers
+# Convenience entry points used by engine / launchers / trainer
 # ---------------------------------------------------------------------------
 
+def train_loss(params, cfg: ModelConfig, batch):
+    """batch: {tokens [B,T], labels [B,T], (optional) image_embeds,
+    audio_embeds, loss_mask}.  Next-token cross-entropy in float32 (the
+    VLM's logits cover [image; text]: only the text tail is scored) plus
+    0.01 times the MoE layers' aux loss."""
+    logits, _, aux = forward(
+        params, cfg, batch["tokens"],
+        image_embeds=batch.get("image_embeds"),
+        audio_embeds=batch.get("audio_embeds"))
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:
+        logits = logits[:, -labels.shape[1]:]
+    loss = softmax_xent(logits[:, :-1], labels[:, 1:],
+                        batch.get("loss_mask"))
+    return loss + 0.01 * aux
+
+
 def prefill(params, cfg, tokens, cache, start_pos, **kw):
-    """Chunked prefill: write tokens at start_pos.., return last logits."""
+    """Chunked prefill: write tokens at start_pos.. (image tokens, which
+    come first, included), return last logits."""
     B, T = tokens.shape
+    if kw.get("image_embeds") is not None:
+        T += kw["image_embeds"].shape[1]
     positions = start_pos[:, None] + torch.arange(
         T, device=tokens.device)[None]
     logits, cache, _ = forward(params, cfg, tokens, positions, cache, **kw)
@@ -358,3 +442,26 @@ def decode_step(params, cfg, tokens, cache, pos, **kw):
     """tokens [B,1]; pos [B] absolute position of the new token."""
     logits, cache, _ = forward(params, cfg, tokens, pos[:, None], cache, **kw)
     return logits[:, -1], cache
+
+
+def full_prefill(params, cfg, tokens, cache, chunk_size: int, *,
+                 image_embeds=None, audio_embeds=None):
+    """Prefill a whole prompt as a loop over chunked-prefill steps of
+    ``chunk_size`` text tokens, as a production instance runs it.  The
+    first chunk carries the modality embeddings (the image tokens are
+    prefilled with it; the encoder runs once and fills the cross KV).
+    Requires (text) S % chunk_size == 0.  Returns (last logits [B, V],
+    cache)."""
+    B, S = tokens.shape
+    if S % chunk_size:
+        raise ValueError(f"chunk {chunk_size} does not divide {S} tokens")
+    start = torch.zeros((B,), dtype=torch.long, device=tokens.device)
+    last, cache = prefill(params, cfg, tokens[:, :chunk_size], cache, start,
+                          image_embeds=image_embeds,
+                          audio_embeds=audio_embeds)
+    offset = chunk_size + (image_embeds.shape[1]
+                           if image_embeds is not None else 0)
+    for c in range(chunk_size, S, chunk_size):
+        last, cache = prefill(params, cfg, tokens[:, c:c + chunk_size],
+                              cache, start + offset + (c - chunk_size))
+    return last, cache

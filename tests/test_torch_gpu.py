@@ -280,10 +280,13 @@ def test_dense_decode_kernel_across_split_boundaries(cuda, hq, hkv, d, dtype,
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
 
 
-# gemma3-1b's 4 / 1 / 256 (its global layers) and granite-moe-3b-a800m's
-# 24 / 8 / 64 among them
+# gemma3-1b's 4 / 1 / 256 (its global layers), granite-moe-3b-a800m's
+# 24 / 8 / 64, whisper-base's 8 / 8 / 64 and llava-next-34b's 56 / 8 / 128
+# (a group of 7: the tensor-core prefill's tile holds 9 tokens, 63 rows)
+# among them
 DENSE_SHAPES = [(8, 2, 64), (9, 3, 64), (16, 2, 128), (4, 4, 112),
-                (32, 32, 112), (4, 1, 256), (24, 8, 64), (8, 2, 256)]
+                (32, 32, 112), (4, 1, 256), (24, 8, 64), (8, 2, 256),
+                (8, 8, 64), (56, 8, 128)]
 
 
 def _dense_kv(dev, B, S, hkv, d, dtype, seed=2):
@@ -458,6 +461,110 @@ def test_ssd_scan_takes_inputs_in_mixed_types(cuda, x_dtype):
                           C_m.float(), 8, s0)
         assert y.dtype == x_dtype
         assert torch.equal(y, ry.to(x_dtype)) and torch.equal(s, rs)
+
+
+def test_ssd_scan_refuses_grad_on_the_card(cuda):
+    """The kernel has no backward: under grad, an input that requires it
+    raises instead of losing its gradient; without grad, or with no such
+    input, the kernel launches."""
+    x, dt, A, B, C, s0 = _ssd_case(cuda, 1, 64, 2, 1, 16, torch.float32)
+    before = ssd_scan.launches
+    for i, name in enumerate(("x", "dt", "A", "B", "C", "s0")):
+        args = [x, dt, A, B, C, s0]
+        args[i] = args[i].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            ssd_scan(*args[:5], 64, args[5])
+        with torch.no_grad():
+            ssd_scan(*args[:5], 64, args[5])
+    ssd_scan(x, dt, A, B, C, 64, s0)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 7
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "llava-next-34b"])
+def test_encdec_and_vlm_on_the_card_match_the_cpu(cuda, arch):
+    """Reduced float32 whisper-base / llava-next-34b: a prefill carrying
+    the audio / image embeddings (kernel 4), a second chunk and 3 decode
+    steps (kernel 3) on the card against the same on the CPU."""
+    cfg = reduced_config(arch)
+    params = tf.init_params(0, cfg, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    B = 2
+    if cfg.family == "audio":
+        kw = {"audio_embeds": torch.randn((B, 24, cfg.d_model),
+                                          generator=g)}
+        cross = 24
+    else:
+        kw = {"image_embeds": torch.randn(
+            (B, cfg.num_image_tokens, cfg.vision_dim), generator=g)}
+        cross = 0
+    tokens = torch.randint(1, cfg.vocab_size, (B, 16), generator=g)
+    outs = {}
+    for dev in ("cpu", cuda):
+        prm = _to(params, dev)
+        cache = tf.init_cache(cfg, B, 128, device=dev, cross_len=cross)
+        lg, _ = tf.full_prefill(prm, cfg, tokens.to(dev), cache, 8,
+                                **{k: v.to(dev) for k, v in kw.items()})
+        got = [lg.cpu()]
+        pos = torch.full((B,), 16 + (cfg.num_image_tokens
+                                     if cfg.family == "vlm" else 0),
+                         device=dev)
+        tok = lg.argmax(-1)
+        for _ in range(3):
+            lg, _ = tf.decode_step(prm, cfg, tok[:, None], cache, pos)
+            got.append(lg.cpu())
+            tok, pos = lg.argmax(-1), pos + 1
+        outs[str(dev)] = got
+    for a, b in zip(outs["cpu"], outs[str(cuda)]):
+        assert (a - b).abs().max().item() <= 1e-4 * max(
+            a.abs().max().item(), 1.0)
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
+
+
+def _to(tree, dev):
+    """A copy of ``tree`` on ``dev`` (a copy on the CPU too: a train step
+    updates its parameters in place)."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.detach().to(dev, copy=True)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """Reduced float32 whisper-base (audio embeddings): loss and every
+    gradient leaf on the card against the CPU, then one AdamW step each.
+    The first step moves an element by about the learning rate whatever
+    its gradient's size (m / sqrt(v) is its sign), so an element whose
+    gradient is below the two devices' rounding may move either way: at
+    most 2 lr apart, and on at most 0.1 % of the elements more than
+    1e-6."""
+    from repro_torch.training.optimizer import (AdamWConfig, init_opt_state,
+                                                tree_leaves)
+    from repro_torch.training.train import loss_and_grads, make_train_step
+    cfg = reduced_config("whisper-base")
+    params = tf.init_params(0, cfg, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    tokens = torch.randint(1, cfg.vocab_size, (2, 32), generator=g)
+    batch = {"tokens": tokens, "labels": tokens,
+             "audio_embeds": torch.randn((2, 24, cfg.d_model), generator=g)}
+    res = {}
+    for dev in ("cpu", cuda):
+        prm = _to(params, dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, grads = loss_and_grads(prm, cfg, b)
+        step = make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=1))
+        step(prm, init_opt_state(prm), b)
+        res[str(dev)] = (loss.item(), [t.cpu() for t in tree_leaves(grads)],
+                         [t.detach().cpu() for t in tree_leaves(prm)])
+    (l0, g0, p0), (l1, g1, p1) = res["cpu"], res[str(cuda)]
+    assert abs(l0 - l1) <= 1e-5 * abs(l0)
+    for a, b in zip(g0, g1):
+        assert (a - b).abs().max().item() <= 1e-3 * a.abs().max().item() \
+            + 1e-6
+    gaps = torch.cat([(a - b).abs().flatten() for a, b in zip(p0, p1)])
+    assert gaps.max().item() <= 2 * 3e-4
+    assert (gaps > 1e-6).float().mean().item() <= 1e-3
 
 
 def test_dense_and_scan_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

@@ -42,7 +42,13 @@ def test_port_has_files_to_check():
     names = {p.name for p in _port_files()}
     assert {"engine.py", "graphs.py", "attention.py", "cluster.py",
             "server.py", "admission.py", "chip_smoke.py", "gateway.py",
-            "http.py", "pipeline.py", "protocol.py", "tokenizer.py"} <= names
+            "http.py", "pipeline.py", "protocol.py", "tokenizer.py",
+            "train.py", "optimizer.py", "checkpoint.py"} <= names
+    rel = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"src/repro_torch/training/train.py",
+            "src/repro_torch/training/optimizer.py",
+            "src/repro_torch/training/checkpoint.py",
+            "src/repro_torch/launch/train.py"} <= rel
 
 
 #: what a front-end tokenizer worker imports (the package, the frontend

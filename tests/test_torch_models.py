@@ -229,16 +229,44 @@ def test_dense_cache_and_cache_free_forward_match_reference():
 
 
 @pytest.mark.parametrize("arch", ["whisper-base", "llava-next-34b"])
-def test_unported_block_types_raise(arch):
-    """The encoder-decoder blocks (whisper) and image inputs (llava's
-    projector) raise and name the slice that brings them."""
-    cfg = reduced_config(arch)
-    with pytest.raises(NotImplementedError,
-                       match="not in the port yet.*next slice"):
-        params = tf.init_params(0, cfg, device="cpu")
-        tokens = torch.ones((1, 4), dtype=torch.long)
-        tf.forward(params, cfg, tokens, image_embeds=torch.zeros(
-            (1, cfg.num_image_tokens, cfg.vision_dim)))
+def test_encdec_and_vlm_layouts_match_reference(arch):
+    """The encoder-decoder (whisper: ENC layers at the head of
+    ``layers``, DEC layers with cross-attention) and VLM (llava: the
+    projector) parameters and caches have the reference's leaves and
+    shapes, and a forward with the modality's embeddings gives finite
+    logits over the right tokens."""
+    import jax
+
+    from repro_torch.convert import params_to_numpy
+    cj, ct = jax_reduced(arch), reduced_config(arch)
+    params = tf.init_params(0, ct, device="cpu")
+    ref = jax.eval_shape(
+        lambda: jax_tf.init_params(jax.random.PRNGKey(0), cj))
+    got = params_to_numpy(params, ct)
+    assert jax.tree.structure(got) == jax.tree.structure(ref)
+    assert [a.shape for a in jax.tree.leaves(got)] == \
+        [a.shape for a in jax.tree.leaves(ref)]
+    cache = tf.init_cache(ct, 2, 32, device="cpu", cross_len=5)
+    ref_cache = jax.eval_shape(
+        lambda: jax_tf.init_cache(cj, 2, 32, cross_len=5))
+    ref_leaves = {k: v.shape for seg in ref_cache["segments"]
+                  for pos in seg if pos is not None for k, v in pos.items()}
+    assert {k: tuple(v.shape) for k, v in cache.items()} == ref_leaves
+    tokens = torch.ones((2, 4), dtype=torch.long)
+    if cj.family == "audio":
+        assert set(cache) == {"k", "v", "ck", "cv"}
+        assert tf.layer_types(ct)[:cj.num_encoder_layers] == \
+            ["enc"] * cj.num_encoder_layers
+        kw = {"audio_embeds": torch.zeros((2, 5, cj.d_model))}
+        n = 4
+    else:
+        assert params["projector"].shape == (cj.vision_dim, cj.d_model)
+        kw = {"image_embeds": torch.zeros((2, cj.num_image_tokens,
+                                           cj.vision_dim))}
+        n = 4 + cj.num_image_tokens
+    logits, _, _ = tf.forward(params, ct, tokens, **kw)
+    assert logits.shape == (2, n, cj.vocab_size)
+    assert torch.isfinite(logits).all()
 
 
 def test_hybrid_forward_matches_reference():
