@@ -14,14 +14,21 @@ Three executor paths, as in the reference's ``JaxExecutor``:
   Prefix reuse and migration are block-table pointer updates, and
   admission is bounded by blocks actually referenced.
 * **batched dense** (the families that cannot page — recurrent state,
-  sliding-window rings, capacity-dropping MoE — and ``paged=False``): a
-  slot-contiguous dense cache
+  sliding-window rings, capacity-dropping MoE, the encoder-decoder — and
+  ``paged=False``): a slot-contiguous dense cache
   (``models.transformer.init_cache``); packed T-padded prefill where
   padding is safe, else exact-shape slot rows; one full-slot-batch decode.
   The dense decode, dense chunked-prefill and SSD-scan kernels carry it.
 * **row-wise reference** (``batched=False``): per-request exact-shape
   prefill on a copied-out cache row and host-side sampling — the
   token-exact oracle the other paths are tested against.
+
+The engine's requests carry text only, as the reference's do.  The VLM
+family (llava) is an all-ATTN stack and pages like any other; its image
+projector is unused.  The encoder-decoder (whisper) takes the dense path:
+its cache holds a cross-attention KV of 0 keys (``cross_len`` 0), its
+encoder is skipped, and every decoder layer's cross-attention over no
+keys gives 0, as the reference's does.
 
 The full-slot-batch decode of the dense paths decodes only the rows the
 plan schedules: the others pass a zero ``valid_len``, so they write no KV
@@ -256,13 +263,6 @@ class TorchExecutor:
                 "(pass device='cpu' to run the plain versions on the CPU)")
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant: {kv_quant!r}")
-        if cfg.family in ("audio", "vlm"):
-            raise ValueError(
-                f"TorchExecutor does not serve {cfg.name}: the {cfg.family} "
-                "family takes audio or image embeddings, which no request "
-                "of the engine carries; its model path serves it "
-                "(models/transformer.py: prefill, full_prefill, "
-                "decode_step)")
         self.cfg = cfg
         self.params = params
         self.n_slots = n_slots

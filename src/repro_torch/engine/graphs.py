@@ -25,6 +25,12 @@ the pool or dense cache is updated in place at a fixed address.  An
 executor that rebuilds its pool must :meth:`StepGraphs.clear` the graphs
 that hold the old one.
 
+The garbage collector is off while a graph is captured.  A collection
+there may free an unreachable executor and so destroy its graphs and
+release their memory pool: CUDA refuses those calls while a capture is
+under way and invalidates the capture (``cudaErrorStreamCaptureInvalidated``,
+then the next kernel launch in it fails).
+
 All graphs of an executor share one memory pool: they replay in turn on
 one stream, and each holds only its static outputs alive between
 replays.  Non-greedy sampling draws from the executor's generator inside
@@ -39,6 +45,7 @@ falls back to the eager step.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Hashable, List, Sequence
 
@@ -134,10 +141,14 @@ class StepGraphs:
         for gen in self.generators:
             graph.register_generator_state(gen)
         before = {k: k.launches for k in COUNTED}
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
                 outputs = fn(*static)
         finally:
+            if collecting:
+                gc.enable()
             # capture launched nothing: the counts go back, and each
             # replay adds what the graph holds
             launches = {k: k.launches - n for k, n in before.items()

@@ -15,12 +15,13 @@ Modes:
 Both real-engine modes run on the card (``--device cuda``, the default) at
 the registered width; ``--reduced`` serves the small test variant and
 ``--device cpu`` the kernels' plain versions.  All-ATTN archs take the
-paged executor path; Mamba2, hybrid, MoE and sliding-window archs
-(mamba2-1.3b, zamba2-7b, granite-moe-3b-a800m, arctic-480b, gemma3-1b)
-the batched dense one, as ``engine.packable`` decides (and only the
-former fuse decode horizons).  The encoder-decoder and VLM archs
-(whisper-base, llava-next-34b) are served by their model path, not by the
-engine, whose requests carry no audio or image embeddings.
+paged executor path, llava-next-34b among them (text only: its projector
+is unused); Mamba2, hybrid, MoE, sliding-window and encoder-decoder archs
+(mamba2-1.3b, zamba2-7b, granite-moe-3b-a800m, arctic-480b, gemma3-1b,
+whisper-base) the batched dense one, as ``engine.packable`` decides (and
+only the former fuse decode horizons).  The engine's requests carry text
+only, so whisper's decoder serves over a cross cache of 0 keys, as the
+reference's does; its 448-token text context wants ``--max-seq 448``.
 
 ``--serve HOST:PORT`` puts the same live loop behind the OpenAI-compatible
 HTTP/SSE front end (``repro_torch.frontend``): ``POST /v1/completions``
@@ -42,6 +43,10 @@ Examples:
       --arch zamba2-7b --reduced --device cpu --qps 2 --n 8 --np 1 --nd 1
   PYTHONPATH=src python -m repro_torch.launch.serve --engine live \\
       --arch gemma3-1b --np 1 --nd 1 --slots 8 --qps 8 --n 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine torch \\
+      --arch whisper-base --np 1 --nd 1 --slots 8 --max-seq 448 --n 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine live \\
+      --arch llava-next-34b --np 1 --nd 1 --hbm-blocks 640 --n 16
   PYTHONPATH=src python -m repro_torch.launch.serve --engine live \\
       --serve 127.0.0.1:8000 --arch smollm-135m --reduced --device cpu
 """

@@ -47,7 +47,8 @@ def main(argv=None):
     print(json.dumps(history, indent=2))
     if args.ckpt:
         save_checkpoint(args.ckpt, params, meta={"arch": cfg.name,
-                                                 "steps": args.steps})
+                                                 "steps": args.steps},
+                        cfg=cfg)
         print("checkpoint saved to", args.ckpt)
 
 

@@ -290,7 +290,7 @@ def _apply_block(btype, bp, cfg, x, positions, cache, shared_attn,
         kvc = ({"k": cache["k"], "v": cache["v"]}
                if cache is not None else None)
         a, _ = attn_lib.self_attention(bp["attn"], cfg, h, positions, kvc,
-                                       rope_cs=rope_cs)
+                                       valid_len=valid_len, rope_cs=rope_cs)
         x = x + a
         h = rms_norm(x, bp["ln_x"], cfg.norm_eps)
         if enc_out is not None:

@@ -89,23 +89,29 @@ def make_eval_step(cfg: ModelConfig) -> Callable:
 
 
 def synthetic_lm_batches(cfg: ModelConfig, batch: int, seq: int,
-                         seed: int = 0, device="cuda"):
+                         seed: int = 0, structured: bool = True,
+                         device="cuda"):
     """Infinite synthetic LM stream on ``device``, drawn on the host from
     a ``torch.Generator`` seeded with ``seed`` (so the CPU and the card
     see the same tokens; the draws differ from the reference's
-    ``jax.random`` ones).  Learnable bigrams (next = (7 t + 3) mod V, or
-    (31 t + 17) mod V one time in ten), so the loss measurably falls."""
+    ``jax.random`` ones).  ``structured`` gives learnable bigrams (next =
+    (7 t + 3) mod V, or (31 t + 17) mod V one time in ten), so the loss
+    measurably falls; without it the tokens are uniform in ``[0, V)``."""
     gen = torch.Generator()
     gen.manual_seed(seed)
     V = cfg.vocab_size
     while True:
-        tokens = torch.empty((batch, seq), dtype=torch.long)
-        tokens[:, 0] = torch.randint(0, V, (batch,), generator=gen)
-        noise = torch.rand((batch, seq), generator=gen) < 0.1
-        for t in range(1, seq):
-            tok = tokens[:, t - 1]
-            tokens[:, t] = torch.where(noise[:, t - 1], (tok * 31 + 17) % V,
-                                       (tok * 7 + 3) % V)
+        if structured:
+            tokens = torch.empty((batch, seq), dtype=torch.long)
+            tokens[:, 0] = torch.randint(0, V, (batch,), generator=gen)
+            noise = torch.rand((batch, seq), generator=gen) < 0.1
+            for t in range(1, seq):
+                tok = tokens[:, t - 1]
+                tokens[:, t] = torch.where(noise[:, t - 1],
+                                           (tok * 31 + 17) % V,
+                                           (tok * 7 + 3) % V)
+        else:
+            tokens = torch.randint(0, V, (batch, seq), generator=gen)
         tokens = tokens.to(device)
         yield {"tokens": tokens, "labels": tokens}
 

@@ -206,9 +206,21 @@ def test_decoder_without_audio_or_cross_cache_raises():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_executor_refuses_audio_and_vlm(arch):
-    """The engine's requests carry no embeddings, so the executor refuses
-    these families and names the model path that serves them."""
-    from repro_torch.engine.engine import TorchExecutor
+    """The executor serves both families text-only, as the reference's
+    does: whisper on the dense path over a cross cache of 0 keys, llava on
+    the paged pool (``tests/test_torch_family_serving.py`` holds their
+    tokens).  What it refuses is a migrated state of the other family's
+    kind: a dense row for llava's pool, pool blocks for whisper's rows."""
+    from repro_torch.engine.engine import MigrationFormatError, TorchExecutor
+    from repro_torch.engine.request import Request
     ct = reduced_config(arch)
-    with pytest.raises(ValueError, match="model path serves it"):
-        TorchExecutor(ct, {}, n_slots=2, max_seq=64, device="cpu")
+    ex = TorchExecutor(ct, tf.init_params(0, ct, device="cpu"), n_slots=2,
+                       max_seq=64, device="cpu")
+    assert ex.paged == (arch == "llava-next-34b")
+    if not ex.paged:
+        assert tuple(ex.cache["cv"].shape[:3]) == (ct.num_layers, 2, 0)
+    req = Request(prompt_len=4, max_new_tokens=2, prompt_tokens=[1, 2, 3, 4])
+    other = ({"row": {}} if ex.paged else
+             {"paged_blocks": {}, "n_blocks": 1})
+    with pytest.raises(MigrationFormatError):
+        ex.insert_state(req, {**other, "pos": 4, "last_token": 0})

@@ -6,6 +6,7 @@ without jax:
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
 import dataclasses
+import gc
 import json
 import os
 import socket
@@ -71,7 +72,10 @@ def _tables(dev, need, width, seed=1):
     return torch.from_numpy(t).to(dev)
 
 
-SHAPES = [(8, 2, 64), (9, 3, 64), (16, 2, 128), (5, 1, 128), (4, 4, 64)]
+# ... and llava-next-34b's 56 / 8 / 128: a group of 7, padded to 8 in the
+# decode body, 9 tokens x 7 heads = 63 rows of a 64-row prefill tile
+SHAPES = [(8, 2, 64), (9, 3, 64), (16, 2, 128), (5, 1, 128), (4, 4, 64),
+          (56, 8, 128)]
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
@@ -670,6 +674,50 @@ def test_hybrid_executor_on_the_card_matches_itself_on_the_cpu(cuda):
     assert on_card == gen(torch.device("cpu"))
 
 
+@pytest.mark.parametrize("arch", ["whisper-base", "llava-next-34b"])
+def test_family_executor_on_the_card_matches_itself_on_the_cpu(cuda, arch):
+    """Reduced float32 whisper-base (dense: kernels 3 and 4, a cross cache
+    of 0 keys) and llava-next-34b (paged: kernels 1 and 2, K-step
+    horizons) served through the executor: the tokens on the card are
+    those of the plain versions on the CPU."""
+    cfg = reduced_config(arch)
+    cpu_params = tf.init_params(7, cfg, device="cpu")
+    rng = np.random.default_rng(7)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, size=n)))
+               for n in (9, 70, 33)]
+
+    def gen(dev):
+        ex = TorchExecutor(cfg, _to_dev(cpu_params, dev), n_slots=4,
+                           max_seq=256, device=dev)
+        inst = Instance(0, D_HEAVY, 48, CostModel(cfg, InstanceSpec(tp=1)),
+                        ex, hbm_blocks=512, max_horizon=8)
+        reqs = [Request(prompt_len=len(p), max_new_tokens=12,
+                        hidden_output_len=12, prompt_tokens=list(p))
+                for p in prompts]
+        for r in reqs:
+            inst.enqueue_prefill(r)
+        now = 0.0
+        for _ in range(300):
+            if all(r.done() for r in reqs):
+                break
+            dur, done, _ = inst.run_iteration(now)
+            now += dur
+            for r in done:
+                inst.admit_decode(r)
+        assert all(r.done() for r in reqs)
+        return [r.output_tokens for r in reqs], ex
+
+    kernels = ((paged_decode_attention, paged_chunked_prefill_attention)
+               if arch == "llava-next-34b" else
+               (decode_attention, chunked_prefill_attention))
+    before = [k.launches for k in kernels]
+    on_card, ex = gen(cuda)
+    assert all(k.launches > b for k, b in zip(kernels, before))
+    assert ex.paged == (arch == "llava-next-34b")
+    assert (ex.horizon_calls > 0) == ex.paged
+    assert on_card == gen(torch.device("cpu"))[0]
+
+
 def _to_dev(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_dev(x, dev) for k, x in tree.items()}
@@ -770,6 +818,50 @@ def _paged_step(ex, reqs, K):
     return (("paged",) + p.tables.shape + (K,),
             lambda *a: (ex._horizon_paged(*a, K=K),),
             (p.tokens, p.start, p.budget, p.tables))
+
+
+def test_capture_survives_garbage_holding_another_executors_graphs(cuda):
+    """Another executor's captured graphs become garbage in a reference
+    cycle while this executor captures, with the collector set to run at
+    every allocation: a collection inside the capture would destroy those
+    graphs and release their pool, which CUDA refuses mid-capture (the
+    capture is invalidated and its next launch fails).  The capture keeps
+    the collector off, so it completes, and its replay gives the
+    uncaptured step's tokens."""
+    cfg = reduced_config("qwen2.5-3b")
+    old_ex, _, old_reqs = _decoding(cfg, cuda)
+    key, fn, host = _paged_step(old_ex, old_reqs, 1)
+    old_ex._dispatch(key, fn, *host)
+    held = [old_ex.graphs]
+    assert len(held[0]) == 1
+    del old_ex, old_reqs, fn
+    gc.collect()                 # only `held` keeps the old graphs now
+
+    ex, _, reqs = _decoding(cfg, cuda)
+    key, fn, host = _paged_step(ex, reqs, 4)
+    pool = {n: t.clone() for n, t in ex.kv.pool.items()}
+    calls = []
+    threshold = gc.get_threshold()
+
+    def collecting_step(*a):
+        calls.append(len(calls))
+        if len(calls) == 2:           # the capture (the first run is eager)
+            cycle = [held.pop()]
+            cycle.append(cycle)       # only the collector can free it now
+            del cycle
+            gc.set_threshold(1, 1, 1)
+        try:
+            return fn(*a)
+        finally:
+            gc.set_threshold(*threshold)
+
+    eager = ex._dispatch(key, collecting_step, *host)[0].clone()
+    assert len(calls) == 2 and len(ex.graphs) == 1 and not held
+    for n, t in pool.items():
+        ex.kv.pool[n].copy_(t)
+    replayed = ex._dispatch(key, collecting_step, *host)[0]
+    assert torch.equal(replayed, eager)
+    gc.collect()
 
 
 def _dense_step(ex, reqs, K):

@@ -48,7 +48,12 @@ def test_port_has_files_to_check():
     assert {"src/repro_torch/training/train.py",
             "src/repro_torch/training/optimizer.py",
             "src/repro_torch/training/checkpoint.py",
-            "src/repro_torch/launch/train.py"} <= rel
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/core/autotune.py",
+            "src/repro_torch/examples/quickstart.py",
+            "src/repro_torch/examples/latency_shifting_demo.py",
+            "src/repro_torch/examples/serve_goodput.py",
+            "src/repro_torch/examples/train_smollm.py"} <= rel
 
 
 #: what a front-end tokenizer worker imports (the package, the frontend

@@ -375,7 +375,8 @@ def test_checkpoint_roundtrip_with_opt_state(arch, tmp_path):
     state = init_opt_state(params)
     params, state, _ = step(params, state, batch)
     path = os.path.join(tmp_path, "c.npz")
-    save_checkpoint(path, params, state, meta={"arch": cfg.name})
+    save_checkpoint(path, params, state, meta={"arch": cfg.name},
+                    cfg=cfg)
     template = tf.init_params(1, cfg, device="cpu")
     p2, s2 = load_checkpoint(path, template, init_opt_state(template))
     for a, b in zip(tree_leaves(params), tree_leaves(p2)):
