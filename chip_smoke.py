@@ -61,7 +61,12 @@ printing one JSON line; any failure raises and the process exits non-zero
   kernels_ssd    the SSD-scan kernel against its plain version: one slot's
                  1024-token prefill at zamba2-7b's and mamba2-1.3b's widths
                  in float32, and zamba2-7b's served prefills in bf16 (887
-                 tokens at chunk 1, 251 at 251, 1024 at 256 and at 1)
+                 tokens at chunk 1, 251 at 251, 1024 at 256 and at 1), each
+                 also with the tile states written (the same bits); its
+                 backward kernel (5b) through ``SSDScanFn`` against float64
+                 autograd of the plain version at both widths, float32 and
+                 bf16, t 1024 and 1075, with and without an initial state,
+                 and at ``train_ssm``'s batches (8 x 512, bf16)
   model_zamba2   zamba2-7b at full width, cut to 12 of its 81 layers:
                  slot prefills and a masked full-batch decode over a dense
                  cache, through the kernels against the plain versions
@@ -86,6 +91,13 @@ printing one JSON line; any failure raises and the process exits non-zero
                  the same for granite-moe-3b-a800m (40 experts top-8,
                  capacity shared by every row of a decode): 8 layers, then
                  full depth, prompts to 2048 tokens
+  params_mamba2, serve_mamba2
+                 mamba2-1.3b at full width and depth (48 MAMBA2 layers, no
+                 attention) on the dense path: 16 requests, prompts to 2048
+                 tokens, two 8-slot instances at max_seq 4096; the scan
+                 only, first tokens held against their replays and float32
+                 replays against the float32 cache-free forward,
+                 ``scan_ms_served``
   model_whisper  whisper-base at full width and depth (6 ENC + 6 DEC
                  layers), bf16, batch 4: 1500 audio frames from a seed
                  through the encoder, a 64-token prompt through kernel 4,
@@ -112,14 +124,22 @@ printing one JSON line; any failure raises and the process exits non-zero
                  the first, no kernel launched; ms a step, tokens/s, peak
                  memory, the optimizer's share, model FLOPs a step over
                  the bf16 peak
+  train_ssm      mamba2-1.3b at full width and depth, bf16, remat: 10
+                 steps at 8 x 512 through kernels 5 and 5b; zamba2-7b at
+                 full width cut to one period (6 layers), 3 steps; losses
+                 finite and falling, each layer's scan (a ZAMBA_ATTN layer
+                 has a mixer too) launched twice forward (with the
+                 recompute) and once backward a step; ms
+                 a step, tokens/s, peak memory, kernel 5b's share of a step
   train_grad     ``train_loss``'s gradients on the card against the CPU
                  (the one CPU computation of this script, labelled so),
                  float32, qwen2.5-3b at full width cut to 2 layers and
-                 whisper-base in full: every leaf within 1e-3 of its
-                 largest value; a whisper-base step at full size with
-                 audio; a checkpoint round trip (one more step from the
-                 saved and the loaded state: losses bit-equal); the scan
-                 kernel refusing a CUDA input that requires grad
+                 whisper-base in full, mamba2-1.3b cut to 2 layers and
+                 zamba2-7b's 6-layer period at 2 x 256 (kernels 5 and 5b
+                 on the card): every leaf within 1e-3 of its largest
+                 value; a whisper-base step at full size with audio; a
+                 checkpoint round trip (one more step from the saved and
+                 the loaded state: losses bit-equal)
   serve_llava    last, alone on the card: llava-next-34b served text-only
                  on the paged path at full width and (where it fits) its
                  60 layers, two 16-slot instances at max_seq 4096 whose
@@ -129,14 +149,19 @@ printing one JSON line; any failure raises and the process exits non-zero
                  replayed decode step's device ms beside its weight read
 
 ``python3 chip_smoke.py --scan-only [SERVED]`` runs only the build and
-``kernels_ssd`` and, given a file holding an earlier run's
-``serve_zamba2`` line, the scan time over its served prefills.
+``kernels_ssd`` (forward and backward cases) and, given a file holding
+an earlier run's ``serve_zamba2`` line, the scan time over its served
+prefills.  ``--ptxas [LOG]`` prints ptxas's registers and spill bytes
+of the scan's kernels, from this checkout's build or from LOG, the
+``nvcc.log`` of another checkout's (``kernels/build.py`` writes one
+beside its library).
 
 Then one line ``{"kernels": [...]}`` with, for every kernel of the port,
 its launches on the paths that run it (``live``, ``frontend``, ``tiers``
 and ``serve_llava`` for the paged kernels, ``serve_zamba2``,
-``serve_gemma3``, ``serve_moe``, ``model_whisper``, ``model_llava`` and
-``serve_whisper`` for the dense ones;
+``serve_gemma3``, ``serve_moe``, ``serve_mamba2``, ``model_whisper``,
+``model_llava`` and ``serve_whisper`` for the dense ones, and
+``train_ssm`` for the scan and its backward;
 ``launches_by_path`` splits them), its error against the plain
 version and its time beside the plain version's, the card's bound and one
 library call; the card's name and power limit as ``nvidia-smi`` prints
@@ -151,6 +176,7 @@ import gc
 import io
 import json
 import os
+from pathlib import Path
 import re
 import socket
 import subprocess
@@ -290,6 +316,28 @@ SSD_SHAPES = [   # (model, heads, head dim P, state N, chunk L, tokens t,
 #: half a bf16 step of a value v is at most 2^-8 |v|: a bf16 y is the
 #: float32 result rounded once, and its error counts beyond that
 BF16_HALF_STEP = 2.0 ** -8
+MAMBA = "mamba2-1.3b"
+#: kernel 5b against float64 autograd of the plain scan, per input:
+#: max |g - g_ref| <= tol max |g_ref| (float32: sums in another order and
+#: the forward's tensor-core pieces; bf16: the gradients rounded to bf16,
+#: 2^-9 of a value, and the forward's bf16 pairs)
+SSD_GRAD_TOL = {torch.float32: SSD_TOL, torch.bfloat16: 2e-2}
+#: kernel 5b against its plain reverse walk on the same inputs and tile
+#: states, per input, relative to the largest value: float32 sums in
+#: another order (bf16: dx rounded to bf16 once, 2^-9 of a value, beyond)
+SSD_BWD_PLAIN_RTOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
+#: (model, heads, state N, batch, tokens t, chunk L, type, initial state,
+#: final state's cotangent): zamba2-7b's and mamba2-1.3b's widths at one
+#: slice and two (t 1075), with and without an initial state; then the
+#: training batches of ``train_ssm`` (8 x 512, bf16, no initial state, the
+#: final state unused)
+SSD_BWD_SHAPES = [
+    (name, h, n, 1, t, L, dtype, s0, True)
+    for name, h, n in ((ZAMBA, 112, 64), (MAMBA, 64, 128))
+    for dtype in (torch.float32, torch.bfloat16)
+    for t, L in ((1024, 256), (1075, 215)) for s0 in (True, False)] + [
+    (MAMBA, 64, 128, 8, 512, 256, torch.bfloat16, False, False),
+    (ZAMBA, 112, 64, 8, 512, 256, torch.bfloat16, False, False)]
 
 # every kernel wrapper of the port (the launch counters live on these
 # function objects, whatever a comparison swaps into the model's modules)
@@ -300,6 +348,7 @@ KERNELS = {
     "decode_attention": dec_ops.decode_attention,
     "chunked_prefill_attention": pf_ops.chunked_prefill_attention,
     "ssd_scan": ssd_ops.ssd_scan,
+    "ssd_scan_bwd": ssd_ops.ssd_scan_bwd,
 }
 PAGED_KERNELS = ("paged_decode_attention", "paged_chunked_prefill_attention")
 DENSE_KERNELS = ("decode_attention", "chunked_prefill_attention", "ssd_scan")
@@ -1515,6 +1564,40 @@ def ptxas_d256():
     return out
 
 
+def ptxas_scan(log=None):
+    """What ptxas reported (``-Xptxas -v``: the ``nvcc.log`` of this
+    checkout's build, or ``log``, another build's) for every instantiation of the scan's kernels (``csrc/ssd_scan.cu``'s
+    ``ssd_walk_kernel``, ``csrc/ssd_scan_bwd.cu``'s ``ssd_bwd_kernel``
+    where the checkout has it): registers a thread and spill bytes, by
+    kernel, state width N, input type and, for the forward, whether the
+    instantiation writes the tile states (None where the checkout's walk
+    has no such parameter)."""
+    out, cur = [], None
+    log = log or build.build_dir() / "nvcc.log"
+    for line in Path(log).read_text().splitlines():
+        m = re.search(r"Compiling entry function '_ZN\d+ssd\w*?\d+"
+                      r"(ssd_\w+?_kernel)I(\w+)'", line)
+        if m:
+            n = re.search(r"Li(\d+)E", m.group(2))
+            st = re.search(r"Lb([01])E", m.group(2))
+            cur = {"kernel": m.group(1), "N": int(n.group(1)) if n else None,
+                   "type": "bf16" if "bfloat16" in m.group(2) else "f32",
+                   "states": st.group(1) == "1" if st else None}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            cur = None
+    return out
+
+
 def phase_graphs(name, check, *args):
     """Run a captured-against-uncaptured check: any difference is printed
     before the phase fails (the two are the same launches on the same
@@ -1614,21 +1697,22 @@ def check_dense_prefill(shape, B, tq, prefix, S=DENSE_S):
             **bound(nbytes, 4.0 * hq * d * pairs, dtype)}
 
 
-def ssd_inputs(h, p, n, t, dtype, seed=15):
+def ssd_inputs(h, p, n, t, dtype, seed=15, b=1):
     """One slot's scan inputs (batch 1: the engine prefills one slot at a
-    time), drawn as the model makes them: A from -1 to -16 over the heads
-    (``init_mamba2``), dt through softplus, x, B and C through SiLU, a
-    non-zero float32 initial state; x, dt, B and C in ``dtype``."""
+    time; a training batch of ``b`` rows), drawn as the model makes them:
+    A from -1 to -16 over the heads (``init_mamba2``), dt through
+    softplus, x, B and C through SiLU, a non-zero float32 initial state;
+    x, dt, B and C in ``dtype``."""
     g = torch.Generator(device=DEV)
     g.manual_seed(seed)
     silu = torch.nn.functional.silu
-    x = silu(torch.randn((1, t, h, p), device=DEV, generator=g))
+    x = silu(torch.randn((b, t, h, p), device=DEV, generator=g))
     dt = torch.nn.functional.softplus(
-        torch.randn((1, t, h), device=DEV, generator=g))
+        torch.randn((b, t, h), device=DEV, generator=g))
     A = -torch.linspace(1.0, 16.0, h, device=DEV)
-    B = silu(torch.randn((1, t, 1, n), device=DEV, generator=g))
-    C = silu(torch.randn((1, t, 1, n), device=DEV, generator=g))
-    s0 = 0.1 * torch.randn((1, h, p, n), device=DEV, generator=g)
+    B = silu(torch.randn((b, t, 1, n), device=DEV, generator=g))
+    C = silu(torch.randn((b, t, 1, n), device=DEV, generator=g))
+    s0 = 0.1 * torch.randn((b, h, p, n), device=DEV, generator=g)
     x, dt, B, C = (a.to(dtype) for a in (x, dt, B, C))
     return x, dt, A, B, C, s0
 
@@ -1655,7 +1739,15 @@ def check_ssd(shape_name, h, p, n, L, t, dtype):
     run = lambda: ssd_ops.ssd_scan(x, dt, A, B, C, L, s0)
     plain = lambda: ssd_ops.ssd_scan_ref(x, dt, A, B, C, L, s0)
     y, s = run()
+    # the launch training makes: the same bits, and the state entering
+    # each tile written besides
+    args = ssd_ops._kernel_inputs(x, dt, A, B, C, L, s0)
+    with_states = lambda: ssd_ops._launch_scan(*args, True)
+    y1, s1, _ = with_states()
     torch.cuda.synchronize()
+    states_bit_equal = torch.equal(y, y1) and torch.equal(s, s1)
+    assert states_bit_equal, f"ssd {shape_name} {dtype} t={t}: states"
+    del y1, s1
     ry, rs = ssd_ops.ssd_scan_ref(*(a.float() for a in (x, dt, A, B, C)),
                                   L, s0)
     assert y.dtype == dtype and s.dtype == torch.float32
@@ -1672,14 +1764,127 @@ def check_ssd(shape_name, h, p, n, L, t, dtype):
             "L": L, "t": t, "max_abs_err": err, "y_max_abs_diff": y_raw,
             "tol": SSD_TOL, "plain_max_abs": ref_max,
             "ms": time_ms(run), "plain_ms": time_ms(plain),
+            "states_bit_equal": states_bit_equal,
+            "ms_with_states": time_ms(with_states),
             "library_ms": None,
             "library": "none: no single PyTorch call computes a chunked "
                        "SSD scan",
             **ssd_bound(x, dt, A, B, C, s0)}
 
 
+def ssd_bwd_bound(x, dt, A, B, C, s0, dy, ds):
+    """Kernel 5b's least time, in the terms of ``ssd_bound``, on the bytes
+    of the function itself: x, dt, B, C and dy in their type, A, the
+    initial state and the final state's cotangent in float32 read once;
+    dx in x's type, ddt, dA, a group's dB and dC ``[b, t, g, n]`` and the
+    initial state's gradient in float32 written once; or 10 P N operations
+    a token and head (twice the forward's) at the bf16 tensor-core rate."""
+    b, t, h, p = x.shape
+    n = B.shape[-1]
+    f32 = lambda a: 4 * a.numel() if a is not None else 0
+    nbytes = (3 * x.numel() * x.element_size()      # x, dy read; dx
+              + dt.numel() * (dt.element_size() + 4) + 2 * f32(A)
+              + (B.numel() + C.numel()) * (B.element_size() + 4)
+              + 2 * f32(s0) + f32(ds))
+    return bound(nbytes, 10.0 * b * t * h * p * n, torch.bfloat16)
+
+
+def check_ssd_bwd(shape_name, h, n, b, t, L, dtype, with_s0, with_ds):
+    """Kernel 5b through ``SSDScanFn`` (the forward kernel with its tile
+    states, then the backward) against float64 ``torch.autograd`` of
+    ``ssd_scan_ref`` on the card, every input's gradient within
+    ``SSD_GRAD_TOL`` of its largest value; the forward's y and final state
+    from the same call held to the float64 forward as ``check_ssd`` holds
+    them, and bit-equal to a ``no_grad`` call; timed (``time_ms``) on the
+    forward kernel's inputs and tile states, beside its plain reverse walk
+    ``ssd_scan_bwd_ref`` on the same.  ``design_bytes``: what this design
+    moves beyond the function's own bytes (the tile states read, and the
+    per-head dA, dB and dC the kernel writes for the wrapper's sums)."""
+    x, dt, A, B, C, s0 = ssd_inputs(h, 64, n, t, dtype, b=b)
+    s0 = s0 if with_s0 else None
+    g = torch.Generator(device=DEV)
+    g.manual_seed(16)
+    dy = torch.randn((b, t, h, 64), device=DEV, generator=g).to(dtype)
+    ds = (torch.randn((b, h, 64, n), device=DEV, generator=g) if with_ds
+          else None)
+    names = ("x", "dt", "A", "B", "C", "init_state")
+
+    def loss(y, s):
+        out = (y * dy.to(y.dtype)).sum()
+        return out + (s * ds.to(s.dtype)).sum() if ds is not None else out
+
+    ins = [a.clone().requires_grad_(True) if a is not None else None
+           for a in (x, dt, A, B, C, s0)]
+    y, s = ssd_ops.ssd_scan(*ins[:5], L, ins[5])
+    loss(y.float(), s).backward()
+    y, s = y.detach(), s.detach()
+    with torch.no_grad():
+        y0, s0_out = ssd_ops.ssd_scan(x, dt, A, B, C, L, s0)
+    torch.cuda.synchronize()
+    fwd_bit_equal = torch.equal(y, y0) and torch.equal(s, s0_out)
+    assert fwd_bit_equal, f"ssd_bwd {shape_name} {dtype} t={t}: forward"
+    del y0, s0_out
+    r64 = [a.detach().double().requires_grad_(True) if a is not None
+           else None for a in (x, dt, A, B, C, s0)]
+    ry, rs = ssd_ops.ssd_scan_ref(*r64[:5], L, r64[5])
+    want = torch.autograd.grad(loss(ry, rs),
+                               [a for a in r64 if a is not None])
+    slack = BF16_HALF_STEP if dtype == torch.bfloat16 else 0.0
+    ry, rs = ry.detach(), rs.detach()
+    fwd_err = max(((y.double() - ry).abs() - slack * ry.abs()).max().item(),
+                  (s.double() - rs).abs().max().item())
+    assert y.dtype == dtype and s.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    assert fwd_err <= SSD_TOL, \
+        f"ssd_bwd {shape_name} {dtype} t={t}: forward {fwd_err}"
+    del y, s, ry, rs
+    rel, err = {}, 0.0
+    for name, a, w in zip(names, [a for a in ins if a is not None], want):
+        assert a.grad.dtype == a.dtype and torch.isfinite(a.grad).all()
+        gap = (a.grad.double() - w).abs().max().item()
+        rel[name] = gap / max(w.abs().max().item(), 1e-30)
+        err = max(err, gap)
+    del r64, want
+    tol = SSD_GRAD_TOL[dtype]
+    assert max(rel.values()) <= tol, \
+        f"ssd_bwd {shape_name} {dtype} t={t}: {rel}"
+    # the wrapper against its plain reverse walk on the same inputs and
+    # the tile states the forward kernel wrote
+    args = ssd_ops._kernel_inputs(x, dt, A, B, C, L, s0)
+    _, _, states = ssd_ops._launch_scan(*args, True)
+    run = lambda: ssd_ops.ssd_scan_bwd(*args[:5], states, dy, ds,
+                                       with_ds0=with_s0)
+    plain = lambda: ssd_ops.ssd_scan_bwd_ref(
+        *(a.float() for a in args[:5]), s0, dy, ds, states=states)
+    plain_rel = {name: ((k.float() - w).abs().max()
+                        / w.abs().max().clamp_min(1e-30)).item()
+                 for name, k, w in zip(names, run(), plain())
+                 if w is not None}
+    assert max(plain_rel.values()) <= SSD_BWD_PLAIN_RTOL[dtype], \
+        f"ssd_bwd {shape_name} {dtype} t={t} vs plain: {plain_rel}"
+    return {"kernel": "ssd_scan_bwd", "shape": shape_name,
+            "dtype": str(dtype).split(".")[1], "h": h, "p": 64, "n": n,
+            "b": b, "t": t, "L": L, "init_state": with_s0,
+            "final_state_cotangent": with_ds, "max_abs_err": err,
+            "rel_err_by_input": rel, "tol": tol, "oracle": "float64 "
+            "autograd of ssd_scan_ref on the card",
+            "forward_max_abs_err": fwd_err, "forward_tol": SSD_TOL,
+            "forward_bit_equal_no_grad": fwd_bit_equal,
+            "plain_rel_err_by_input": plain_rel,
+            "plain_tol": SSD_BWD_PLAIN_RTOL[dtype],
+            "design_bytes": {"tile_states_read": 4 * states.numel(),
+                             "per_head_partials_written":
+                                 4 * (b * h + 2 * b * t * h * n)},
+            "ms": time_ms(run), "plain_ms": time_ms(plain),
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes the scan's "
+                       "gradient",
+            **ssd_bwd_bound(x, dt, A, B, C, s0, dy, ds)}
+
+
 def phase_kernels_ssd():
     cases = [check_ssd(*args) for args in SSD_SHAPES]
+    cases += [check_ssd_bwd(*args) for args in SSD_BWD_SHAPES]
     emit("kernels_ssd", cases=cases)
     return cases
 
@@ -2029,6 +2234,30 @@ def serve_dense(cfg, params, wl, qps, max_seq, kernels, cache_free=True,
     return fields, launches, chunks, reqs
 
 
+def scan_layers(cfg):
+    """Layers that run a Mamba2 mixer, hence the scan: MAMBA2 and
+    ZAMBA_ATTN (a shared attention block beside a mixer of its own)."""
+    return sum(b in tf.STATE_BLOCKS for b in tf.layer_types(cfg))
+
+
+def served_scans(cfg, chunks, launches):
+    """Every slot prefill of more than one token scans once a MAMBA2
+    layer, at the chunk the model's rule picks for its length (held
+    against the run's scan launches); the served (T, chunk, count)
+    histogram and the scan kernel's time summed over it."""
+    n_scan = scan_layers(cfg)
+    served = collections.Counter(
+        (take, m2.scan_chunk(cfg, take)) for takes in chunks.values()
+        for take in takes if take > 1)
+    served = sorted([T, c, k] for (T, c), k in served.items())
+    assert sum(k for _, _, k in served) * n_scan \
+        == launches["ssd_scan"], (served, launches)
+    scan_ms, scan_per_t = served_scan_ms(
+        served, n_scan, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state)
+    return dict(served_prefills=served, scan_ms_served=scan_ms,
+                scan_ms_by_prefill=scan_per_t)
+
+
 def phase_serve_zamba2(cfg, params):
     """zamba2-7b: two 8-slot instances at ``max_seq`` 2048, 16 requests
     with prompts of 128-1536 tokens (the D-heavy instance prefills them in
@@ -2048,19 +2277,7 @@ def phase_serve_zamba2(cfg, params):
     n_attn = cfg.attn_layer_count()
     assert launches["ssd_scan"] * n_attn \
         == launches["chunked_prefill_attention"] * cfg.num_layers, launches
-    # every slot prefill of more than one token scans once a layer, at the
-    # chunk the model's rule picks for its length
-    served = collections.Counter(
-        (take, m2.scan_chunk(cfg, take)) for takes in chunks.values()
-        for take in takes if take > 1)
-    served = sorted([T, c, k] for (T, c), k in served.items())
-    assert sum(k for _, _, k in served) * cfg.num_layers \
-        == launches["ssd_scan"], (served, launches)
-    scan_ms, scan_per_t = served_scan_ms(
-        served, cfg.num_layers, cfg.ssm_nheads, cfg.ssm_headdim,
-        cfg.ssm_state)
-    emit("serve_zamba2", **fields, served_prefills=served,
-         scan_ms_served=scan_ms, scan_ms_by_prefill=scan_per_t)
+    emit("serve_zamba2", **fields, **served_scans(cfg, chunks, launches))
     # the served path against its own replay: the same kernels on the
     # same chunks, so only a fault around them could tell the two apart
     assert fields["first_token_equals_replay"] == f"{len(reqs)}/{len(reqs)}", \
@@ -2085,6 +2302,31 @@ def phase_serve_family(name, cfg, params, wl, cache_free):
     assert launches["decode_attention"] > 0 \
         and launches["chunked_prefill_attention"] > 0 \
         and launches["ssd_scan"] == 0, launches
+    assert fields["first_token_equals_replay"] == f"{len(reqs)}/{len(reqs)}", \
+        fields["first_token_equals_replay"]
+    return launches
+
+
+def phase_serve_mamba2(cfg, params):
+    """mamba2-1.3b at full width and depth (48 MAMBA2 layers, no
+    attention): two 8-slot dense instances at ``max_seq`` 4096, 16
+    requests with prompts of 128-2048 tokens and 16-64 output tokens,
+    arriving at 8 a second.  Held: the scan launched once a layer for
+    every slot prefill of more than one token, no attention kernel, every
+    first token equal to its replay's, and the float32 replay of every
+    prompt's served chunks against the float32 cache-free forward (the
+    recurrent state carried across chunks against one scan of the
+    prompt).  Reported: ``scan_ms_served``."""
+    wl = WorkloadSpec("mamba2-smoke",
+                      LengthDist(mu=6.7, sigma=0.7, lo=128, hi=2048),
+                      LengthDist(mu=3.4, sigma=0.5, lo=16, hi=64),
+                      tokenized=True, vocab_size=cfg.vocab_size)
+    fields, launches, chunks, reqs = serve_dense(
+        cfg, params, wl, 8.0, FAMILY_S, DENSE_KERNELS, f32_oracle=True)
+    emit("serve_mamba2", **fields, **served_scans(cfg, chunks, launches))
+    assert launches["ssd_scan"] > 0 \
+        and launches["decode_attention"] == 0 \
+        and launches["chunked_prefill_attention"] == 0, launches
     assert fields["first_token_equals_replay"] == f"{len(reqs)}/{len(reqs)}", \
         fields["first_token_equals_replay"]
     return launches
@@ -2583,7 +2825,7 @@ def phase_train():
     step_fn = make_train_step(cfg, opt_cfg)
     data = synthetic_lm_batches(cfg, B, T, seed=0, device=DEV)
     batches = [next(data) for _ in range(steps)]
-    reset_counts(DENSE_KERNELS + PAGED_KERNELS)
+    reset_counts(tuple(KERNELS))
     losses, norms, ms = [], [], []
     for b in batches:
         t0 = time.perf_counter()
@@ -2591,7 +2833,7 @@ def phase_train():
         losses.append(m["loss"].item())
         norms.append(m["grad_norm"].item())
         ms.append(1e3 * (time.perf_counter() - t0))
-    launched = launch_counts(DENSE_KERNELS + PAGED_KERNELS)
+    launched = launch_counts(tuple(KERNELS))
     peak = torch.cuda.max_memory_allocated()
     # the optimizer alone, on the last batch's gradients (a few more
     # updates of parameters nobody reads after)
@@ -2626,6 +2868,100 @@ def phase_train():
     torch.cuda.empty_cache()
 
 
+#: train_ssm: zamba2-7b at full width cut to one period of its layer
+#: pattern (5 MAMBA2 + 1 ZAMBA_ATTN of its 81 layers): its 19 B parameters
+#: would need ~420 GB at 22 bytes each
+ZAMBA_TRAIN_LAYERS = 6
+
+
+def train_ssm_run(cfg, B, T, steps):
+    """``steps`` AdamW steps of ``make_train_step`` (``total_steps`` =
+    steps, ``warmup_steps`` 1) at batch B by T on ``synthetic_lm_batches``
+    with ``cfg.remat`` on, the launch counts set to 0 just before and read
+    just after; kernel 5b timed by the CUDA events its wrapper records
+    just around each launch (``ssd_scan_bwd.events``).
+    Held: every loss and gradient norm finite, the last loss below the
+    first, no attention kernel launched, and each scan layer's
+    (``scan_layers``) scan run twice forward (the step's forward and its
+    recompute under ``torch.utils.checkpoint``) and once backward a
+    step."""
+    assert cfg.remat
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_params(0, cfg, device=DEV)
+    n_params = count_params(params)
+    n_scan = scan_layers(cfg)
+    opt_cfg = AdamWConfig(total_steps=steps, warmup_steps=1)
+    opt_state = init_opt_state(params)
+    step_fn = make_train_step(cfg, opt_cfg)
+    data = synthetic_lm_batches(cfg, B, T, seed=0, device=DEV)
+    batches = [next(data) for _ in range(steps)]
+    names = DENSE_KERNELS + PAGED_KERNELS + ("ssd_scan_bwd",)
+    losses, norms, ms, bwd_events = [], [], [], []
+    reset_counts(names)
+    for b in batches:
+        bwd_events.append([])
+        ssd_ops.ssd_scan_bwd.events = bwd_events[-1]
+        t0 = time.perf_counter()
+        _, _, m = step_fn(params, opt_state, b)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        ms.append(1e3 * (time.perf_counter() - t0))
+    launched = launch_counts(names)
+    ssd_ops.ssd_scan_bwd.events = None
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    bwd_ms = [sum(a.elapsed_time(b) for a, b in ev) for ev in bwd_events]
+    steady = ms[2:] if steps > 3 else ms[1:]
+    steady_ms = sum(steady) / len(steady)
+    fields = dict(
+        model=cfg.name, layers=cfg.num_layers, scan_layers=n_scan,
+        parameters=n_params, remat=cfg.remat, dtype=cfg.dtype, batch=B,
+        seq=T, steps=steps, losses=losses, grad_norms=norms, step_ms=ms,
+        first_step_ms=ms[0], steady_step_ms=steady_ms,
+        tokens_per_s=1e3 * B * T / steady_ms, peak_device_bytes=peak,
+        kernel_launches=launched,
+        expected_scan_launches={"ssd_scan": 2 * n_scan * steps,
+                                "ssd_scan_bwd": n_scan * steps},
+        ssd_scan_bwd_ms_a_step=bwd_ms,
+        ssd_scan_bwd_share_of_steady_step=(
+            sum(bwd_ms[len(ms) - len(steady):]) / sum(steady)))
+    del params, opt_state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fields
+
+
+def phase_train_ssm():
+    """mamba2-1.3b at full width and depth (48 MAMBA2 layers), bf16,
+    remat: 10 steps at batch 8 by 512; then zamba2-7b at full width cut to
+    one period (``ZAMBA_TRAIN_LAYERS``: 6 scans a forward, the ZAMBA_ATTN
+    layer's mixer included), 3 steps at the same batch; both
+    held as ``train_ssm_run`` says.  Returns the launches of both runs
+    (kernel -> sum), the path's counts."""
+    runs = {}
+    for name, cfg, steps in (
+            (MAMBA, get_config(MAMBA), 10),
+            (ZAMBA, dataclasses.replace(get_config(ZAMBA),
+                                        num_layers=ZAMBA_TRAIN_LAYERS), 3)):
+        runs[name] = train_ssm_run(cfg, 8, 512, steps)
+    runs[ZAMBA]["cut"] = (f"num_layers {ZAMBA_TRAIN_LAYERS} of 81: one "
+                          "period, 5 MAMBA2 + 1 ZAMBA_ATTN")
+    emit("train_ssm", runs=runs)
+    for name, r in runs.items():
+        assert all(np.isfinite(r["losses"])) \
+            and all(np.isfinite(r["grad_norms"])), (name, r["losses"])
+        assert r["losses"][-1] < r["losses"][0], (name, r["losses"])
+        got = r["kernel_launches"]
+        for k, want in r["expected_scan_launches"].items():
+            assert got[k] == want, (name, k, got[k], want)
+        assert all(got[k] == 0 for k in got
+                   if k not in r["expected_scan_launches"]), (name, got)
+    return {k: sum(r["kernel_launches"][k] for r in runs.values())
+            for k in ("ssd_scan", "ssd_scan_bwd")}
+
+
 def _grad_gaps(gpu, cpu):
     """Per leaf max |g_gpu - g_cpu| over max |g_cpu|, and whether every
     leaf keeps max |g_gpu - g_cpu| <= TRAIN_GRAD_RTOL max |g_cpu| + 1e-6."""
@@ -2645,32 +2981,46 @@ def _to_device(tree, dev):
 def phase_train_grad():
     """The gradient's oracle: ``train_loss`` and its gradients on the card
     against the same code on the CPU (labelled: the one CPU computation of
-    this script), float32, batch 2 by 128, for qwen2.5-3b at full width cut
-    to 2 layers and whisper-base in full (1500 audio frames).  Then one
-    whisper-base train step at full size in bf16 (batch 4 by 448, audio),
-    a checkpoint round trip (save, load, one more step from each: losses
-    bit-equal), and the SSD scan refusing a CUDA input that requires
-    grad."""
+    this script), float32, for qwen2.5-3b at full width cut to 2 layers
+    and whisper-base in full (1500 audio frames) at batch 2 by 128, and
+    mamba2-1.3b cut to 2 layers and zamba2-7b cut to one period
+    (``ZAMBA_TRAIN_LAYERS``) at batch 2 by 256 (four scan tiles: the card
+    runs kernels 5 and 5b, the CPU their plain versions).  Then one
+    whisper-base train step at full size in bf16 (batch 4 by 448, audio)
+    and a checkpoint round trip (save, load, one more step from each:
+    losses bit-equal)."""
     out = {}
-    for name, cfg in (
+    for name, cfg, seq in (
             ("qwen2.5-3b", dataclasses.replace(get_config(MODEL),
-                                               num_layers=2, dtype="float32")),
+                                               num_layers=2, dtype="float32"),
+             128),
             (WHISPER, dataclasses.replace(get_config(WHISPER),
-                                          dtype="float32"))):
+                                          dtype="float32"), 128),
+            (MAMBA, dataclasses.replace(get_config(MAMBA), num_layers=2,
+                                        dtype="float32"), 256),
+            (ZAMBA, dataclasses.replace(get_config(ZAMBA),
+                                        num_layers=ZAMBA_TRAIN_LAYERS,
+                                        dtype="float32"), 256)):
         params_cpu = tf.init_params(0, cfg, device="cpu")
-        batch = next(synthetic_lm_batches(cfg, 2, 128, seed=1, device="cpu"))
+        batch = next(synthetic_lm_batches(cfg, 2, seq, seed=1, device="cpu"))
         if cfg.family == "audio":
             gen = torch.Generator().manual_seed(33)
             batch["audio_embeds"] = torch.randn(
                 (2, WHISPER_FRAMES, cfg.d_model), generator=gen)
         params_gpu = _to_device(params_cpu, DEV)
+        reset_counts(("ssd_scan", "ssd_scan_bwd"))
         loss_gpu, g_gpu = loss_and_grads(params_gpu, cfg,
                                          _to_device(batch, DEV))
+        scans = launch_counts(("ssd_scan", "ssd_scan_bwd"))
         t0 = time.perf_counter()
         loss_cpu, g_cpu = loss_and_grads(params_cpu, cfg, batch)
         cpu_s = time.perf_counter() - t0
         worst, ok = _grad_gaps(g_gpu, g_cpu)
-        out[name] = {"layers": cfg.num_layers, "loss_gpu": loss_gpu.item(),
+        n_scan = scan_layers(cfg)
+        assert scans == {"ssd_scan": 2 * n_scan,
+                         "ssd_scan_bwd": n_scan}, (name, scans)
+        out[name] = {"layers": cfg.num_layers, "batch": 2, "seq": seq,
+                     "scan_launches": scans, "loss_gpu": loss_gpu.item(),
                      "loss_cpu_oracle": loss_cpu.item(),
                      "grad_leaves": len(tree_leaves(g_cpu)),
                      "worst_leaf_gap_over_max": worst, "held": ok,
@@ -2703,25 +3053,17 @@ def phase_train_grad():
     _, _, m2 = step_fn(p2, s2, batch)
     ckpt = {"params_bit_equal": params_equal,
             "loss_saved": m1["loss"].item(), "loss_loaded": m2["loss"].item()}
-    # the scan kernel refuses a gradient it cannot carry
-    x, dt, A, B, C, s0 = ssd_inputs(4, 64, 16, 64, torch.float32)
-    try:
-        ssd_ops.ssd_scan(x.requires_grad_(True), dt, A, B, C, 64, s0)
-        refused = ""
-    except RuntimeError as e:
-        refused = str(e)
     emit("train_grad", oracle="cpu", tol_rtol=TRAIN_GRAD_RTOL, tol_atol=1e-6,
          models=out, whisper_step={"batch": 4, "seq": 448,
                                    "audio_frames": WHISPER_FRAMES,
                                    "loss": m0["loss"].item(),
                                    "grad_norm": m0["grad_norm"].item(),
                                    "ms": step_ms},
-         checkpoint=ckpt, ssd_scan_refuses_grad=refused)
+         checkpoint=ckpt)
     assert all(v["held"] for v in out.values()), out
     assert np.isfinite(m0["loss"].item()) and \
         np.isfinite(m0["grad_norm"].item())
     assert params_equal and ckpt["loss_saved"] == ckpt["loss_loaded"], ckpt
-    assert "no backward" in refused, refused
     del params, p2, template, opt_state, s2
     gc.collect()
     torch.cuda.empty_cache()
@@ -2752,6 +3094,11 @@ KERNEL_META = {
         "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan/ssd_kernel.py:85",
         dict(shape=ZAMBA, L=256, dtype="float32")),
+    "ssd_scan_bwd": (
+        "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "none: no pl.pallas_call (the reference takes jax.grad of "
+        "ssd_chunked, src/repro/models/mamba2.py:48)",
+        dict(shape=MAMBA, b=8, t=512, dtype="bfloat16")),
 }
 
 
@@ -2777,10 +3124,9 @@ def kernels_line(cases, by_path):
 def scan_only(argv):
     """``--scan-only [SERVED]``: build, time the scan cases and, given the
     ``serve_zamba2`` JSON line of an earlier run in the file SERVED, the
-    scan over that run's served prefills.  It uses only the scan wrapper's
-    public call, so a copy of this script placed in an older checkout
-    times that checkout's kernel the same way."""
+    scan over that run's served prefills."""
     build.load_library()
+    emit("ptxas_scan", kernels=ptxas_scan())
     phase_kernels_ssd()
     if argv:
         with open(argv[0]) as f:
@@ -2809,12 +3155,19 @@ def main(argv):
     assert torch.backends.cuda.matmul.allow_tf32 is False
     if argv[:1] == ["--scan-only"]:
         return scan_only(argv[1:])
+    if argv[:1] == ["--ptxas"]:
+        if len(argv) == 1:
+            build.load_library()
+        emit("ptxas_scan", log=argv[1] if len(argv) > 1 else "this build",
+             kernels=ptxas_scan(*argv[1:2]))
+        return 0
 
     t0 = time.perf_counter()
     build.load_library()
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=build.last_build_seconds,
-         sources=[p.name for p in build.sources()], d256=ptxas_d256())
+         sources=[p.name for p in build.sources()], d256=ptxas_d256(),
+         ssd=ptxas_scan())
 
     cases = phase_kernels()
 
@@ -2887,6 +3240,19 @@ def main(argv):
         gc.collect()
         torch.cuda.empty_cache()
 
+    mcfg = get_config(MAMBA)
+    t0 = time.perf_counter()
+    mparams = tf.init_params(0, mcfg, device=DEV)
+    torch.cuda.synchronize()
+    emit("params_mamba2", model=mcfg.name, layers=mcfg.num_layers,
+         parameters=count_params(mparams),
+         device_bytes=torch.cuda.memory_allocated(),
+         seconds=time.perf_counter() - t0)
+    by_path["serve_mamba2"] = phase_serve_mamba2(mcfg, mparams)
+    del mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
     for phase, fn in (("model_whisper", phase_model_whisper),
                       ("model_llava", phase_model_llava)):
         reset_counts(DENSE_KERNELS)
@@ -2896,6 +3262,7 @@ def main(argv):
     by_path["serve_whisper"] = phase_serve_whisper()
     phase_examples()
     phase_train()
+    by_path["train_ssm"] = phase_train_ssm()
     phase_train_grad()
     # last, with nothing else on the card: llava-next-34b's weights fill
     # most of it

@@ -142,10 +142,18 @@ def _bind(lib: ctypes.CDLL):
         i, i, p]
     lib.ssd_scan.restype = i
     lib.ssd_scan.argtypes = [
-        p, p, p, p, p, p, p, p,            # x dt A B C s0 y sfin
+        p, p, p, p, p, p, p, p, p,         # x dt A B C s0 y sfin states
         i, i, i, i, i, i,                  # b T H G P N
         i64, i64, i64, i64, i64, i64, i64,  # strides: x, dt, B/C (batch,
                                            # token), s0 (batch)
+        i, p]                              # x dtype, stream
+    lib.ssd_scan_bwd.restype = i
+    lib.ssd_scan_bwd.argtypes = [
+        p, p, p, p, p, p, p, p,            # x dt A B C dy dsfin states
+        p, p, p, p, p, p,                  # dx ddt dA dB dC ds0
+        i, i, i, i, i, i,                  # b T H G P N
+        i64, i64, i64, i64, i64, i64,      # strides: x, dt, B/C (batch,
+                                           # token)
         i, p]                              # x dtype, stream
 
 

@@ -25,7 +25,13 @@
 // state in registers, and writes each tile's y as it goes: one launch, no
 // scratch, for a prefill of up to kSliceTiles tiles (1024 tokens).  A
 // longer one is walked a slice of kSliceTiles tiles a launch, each entered
-// with the final state the launch before wrote.  Splitting a head's tiles
+// with the final state the launch before wrote.  Given a states pointer
+// (training: the backward's input) the walk also writes the state
+// entering each tile, from the registers it holds.  That is a second
+// instantiation of the walk (kStates): a run-time branch on the pointer
+// costs registers in the walk (ptxas: 128 -> 159-222 a thread in bf16, a
+// spill at N 128 in f32), so serving, which passes null, runs an
+// instantiation that holds no store at all.  Splitting a head's tiles
 // over several blocks (a pass for the tiles' increments, one carrying the
 // state across them, one for y) was slower on the H100 at 1024 tokens
 // (PERF.md).  Every sum runs in a fixed order (no atomics), so a call is
@@ -121,6 +127,9 @@ struct ScanArgs {
                                   // be sfin (a slice after the first)
   XT* y;
   float* sfin;
+  float* states;                  // null, or the state entering each tile
+                                  // [b, H, ceil(T / kTile), P, N] (for the
+                                  // backward, csrc/ssd_scan_bwd.cu)
   int T, H, G;
   int c0, c1;                     // the tiles this launch walks
   long x_sb, x_st, dt_sb, dt_st, bc_sb, bc_st, s0_sb;
@@ -641,8 +650,9 @@ struct TileOutputs {
 // One (head, batch row): walks tiles [c0, c1) in order from the state s0
 // (zero where null), the state in registers, writes each tile's y and the
 // final state.  Every tile's cum, dt and coefficients are formed first, a
-// tile a warp, so the walk waits only for its tiles' loads.
-template <int N, typename XT>
+// tile a warp, so the walk waits only for its tiles' loads.  kStates: also
+// write the state entering each tile to a.states.
+template <int N, typename XT, bool kStates>
 __global__ void __launch_bounds__(kThreads) ssd_walk_kernel(ScanArgs<XT> a) {
   using Pc = Pieces<XT>;
   using L = WalkSmem<N, XT>;
@@ -736,6 +746,13 @@ __global__ void __launch_bounds__(kThreads) ssd_walk_kernel(ScanArgs<XT> a) {
     const double* cm = cum + k * kTile;
     const int t0 = c * kTile;
     const int n_rows = min(kTile, a.T - t0);
+    if constexpr (kStates) {
+      float* st = a.states +
+                  (head * ((a.T + kTile - 1) / kTile) + c) * (kP * N);
+      for_state<N>(s, warp, lane, [&](int r, int col, float& v0, float& v1) {
+        store2(st + r * N + col, v0, v1);
+      });
+    }
     TileOutputs<N, XT> y;
     y.compute(Xs + Pc::kIn * L::kXPlane, Bs, Xs, Ss, red, cm, dts + k * kTile,
               n_rows, warp, lane);
@@ -761,7 +778,8 @@ __global__ void __launch_bounds__(kThreads) ssd_walk_kernel(ScanArgs<XT> a) {
 
 template <int N, typename XT>
 int launch(ScanArgs<XT> a, int b, cudaStream_t stream) {
-  auto walk = ssd_walk_kernel<N, XT>;
+  auto walk = a.states != nullptr ? ssd_walk_kernel<N, XT, true>
+                                  : ssd_walk_kernel<N, XT, false>;
   constexpr size_t smem = WalkSmem<N, XT>::kBytes;
   static_assert(smem <= 227 * 1024, "shared memory");
   cudaError_t err = cudaFuncSetAttribute(
@@ -799,9 +817,10 @@ int dispatch_n(int N, const ScanArgs<XT>& a, int b, cudaStream_t stream) {
 
 template <typename XT>
 int run(const void* x, const void* dt, const float* A, const void* B,
-        const void* C, const float* s0, void* y, float* sfin, int b, int T,
-        int H, int G, int N, long x_sb, long x_st, long dt_sb, long dt_st,
-        long bc_sb, long bc_st, long s0_sb, cudaStream_t stream) {
+        const void* C, const float* s0, void* y, float* sfin, float* states,
+        int b, int T, int H, int G, int N, long x_sb, long x_st, long dt_sb,
+        long dt_st, long bc_sb, long bc_st, long s0_sb,
+        cudaStream_t stream) {
   ScanArgs<XT> a;
   a.x = static_cast<const XT*>(x);
   a.dt = static_cast<const XT*>(dt);
@@ -811,6 +830,7 @@ int run(const void* x, const void* dt, const float* A, const void* B,
   a.s0 = s0;
   a.y = static_cast<XT*>(y);
   a.sfin = sfin;
+  a.states = states;
   a.T = T;
   a.H = H;
   a.G = G;
@@ -834,10 +854,13 @@ int run(const void* x, const void* dt, const float* A, const void* B,
 // and 1 and the same strides; their pointers and strides 16-byte aligned.
 // dt is [b, T, H] in x's type with head stride 1; s0 (or null)
 // [b, H, P, N] with the batch stride given; y [b, T, H, P] and sfin
-// [b, H, P, N] contiguous.
+// [b, H, P, N] contiguous; states (or null) [b, H, ceil(T / 64), P, N]
+// float32 contiguous, where the state entering each tile is written (y and
+// sfin are the same bits either way).
 extern "C" int ssd_scan(const void* x, const void* dt, const float* A,
                         const void* B, const void* C, const float* s0,
-                        void* y, float* sfin, int b, int T, int H, int G,
+                        void* y, float* sfin, float* states, int b, int T,
+                        int H, int G,
                         int P, int N, int64_t x_sb, int64_t x_st,
                         int64_t dt_sb, int64_t dt_st, int64_t bc_sb,
                         int64_t bc_st, int64_t s0_sb, int x_dtype,
@@ -848,10 +871,10 @@ extern "C" int ssd_scan(const void* x, const void* dt, const float* A,
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == kF32)
-    return run<float>(x, dt, A, B, C, s0, y, sfin, b, T, H, G, N, x_sb, x_st,
-                      dt_sb, dt_st, bc_sb, bc_st, s0_sb, s);
+    return run<float>(x, dt, A, B, C, s0, y, sfin, states, b, T, H, G, N,
+                      x_sb, x_st, dt_sb, dt_st, bc_sb, bc_st, s0_sb, s);
   if (x_dtype == kBF16)
-    return run<bf16>(x, dt, A, B, C, s0, y, sfin, b, T, H, G, N, x_sb, x_st,
-                     dt_sb, dt_st, bc_sb, bc_st, s0_sb, s);
+    return run<bf16>(x, dt, A, B, C, s0, y, sfin, states, b, T, H, G, N,
+                     x_sb, x_st, dt_sb, dt_st, bc_sb, bc_st, s0_sb, s);
   return -1;
 }

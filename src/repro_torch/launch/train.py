@@ -8,8 +8,12 @@ the registered width and depth.
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
       --full-config --steps 10 --batch 8 --seq 512
 
-Mamba2 and zamba2 train on the CPU only: the scan kernel has no backward
-yet, so on the card it refuses a gradient rather than dropping it.
+Every registered family trains on the card, Mamba2 and zamba2 included:
+their scan runs the forward kernel and its hand-written backward
+(``kernels/ssd_scan/ops.py::SSDScanFn``).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
+      --full-config --steps 10 --batch 8 --seq 512
 """
 from __future__ import annotations
 

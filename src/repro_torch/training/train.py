@@ -4,10 +4,12 @@ arch — the reference's ``training/train.py`` in PyTorch.
 ``make_train_step`` returns the (params, opt_state, batch) -> (params,
 opt_state, metrics) function: the gradient by ``torch.autograd.grad``
 over the parameter leaves, then the in-place AdamW update.  Training
-runs the model without a cache, so no kernel of the port runs in it (as
-in the reference, whose kernels have no backward): its attention is plain
-matrix products.  A Mamba2 layer's scan refuses grad on the card
-(``kernels/ssd_scan/ops.py``), so Mamba2 and zamba2 train on the CPU.
+runs the model without a cache, so no attention kernel runs in it (as in
+the reference, whose kernels have no backward): its attention is plain
+matrix products.  A Mamba2 layer's scan is the one kernel training
+launches: on the card its forward kernel and the hand-written backward
+kernel (``kernels/ssd_scan/ops.py::SSDScanFn``), so Mamba2 and zamba2
+train on the card like every other family.
 """
 from __future__ import annotations
 

@@ -31,8 +31,11 @@ from repro_torch.kernels.decode_attention.ops import (
     paged_decode_attention, paged_decode_attention_ref)
 from repro_torch.kernels.paged_args import gather_pool
 from repro_torch.kernels.ssd_scan.ops import P_ROUND as P_ROUND_SSD
-from repro_torch.kernels.ssd_scan.ops import (ssd_scan, ssd_scan_ref,
-                                              ssd_scan_tiled_ref)
+from repro_torch.kernels.ssd_scan.ops import (_kernel_inputs, _launch_scan,
+                                              ssd_scan, ssd_scan_bwd,
+                                              ssd_scan_bwd_ref, ssd_scan_ref,
+                                              ssd_scan_tiled_ref,
+                                              ssd_tile_states_ref)
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
 
@@ -467,22 +470,180 @@ def test_ssd_scan_takes_inputs_in_mixed_types(cuda, x_dtype):
         assert torch.equal(y, ry.to(x_dtype)) and torch.equal(s, rs)
 
 
-def test_ssd_scan_refuses_grad_on_the_card(cuda):
-    """The kernel has no backward: under grad, an input that requires it
-    raises instead of losing its gradient; without grad, or with no such
-    input, the kernel launches."""
-    x, dt, A, B, C, s0 = _ssd_case(cuda, 1, 64, 2, 1, 16, torch.float32)
-    before = ssd_scan.launches
-    for i, name in enumerate(("x", "dt", "A", "B", "C", "s0")):
+#: the backward against float64 autograd of the plain version, per input:
+#: max |g - g_ref| <= tol max |g_ref| (float32 sums in another order and
+#: the forward's tensor-core pieces; bf16: the inputs' gradients rounded
+#: to bf16 once, 2^-9 of a value, and the forward's bf16 pairs)
+SSD_GRAD_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+#: the backward kernel against its plain walk on the same inputs and tile
+#: states, per input, relative to its largest value: float32 sums in
+#: another order (bf16 outputs: one rounding beyond)
+SSD_BWD_WALK_RTOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
+
+
+def _ssd_grad_case(dev, b, t, h, g, n, dtype, with_s0, seed=8):
+    x, dt, A, B, C, s0 = _ssd_case(dev, b, t, h, g, n, dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dy = torch.randn((b, t, h, 64), device=dev, generator=gen)
+    ds = torch.randn((b, h, 64, n), device=dev, generator=gen)
+    return x, dt, A, B, C, (s0 if with_s0 else None), dy.to(dtype), ds
+
+
+def _rel_gaps(got, want):
+    return [((a.float() - w.float()).abs().max()
+             / w.float().abs().max().clamp_min(1e-30)).item()
+            for a, w in zip(got, want) if w is not None]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t,h,g,n,chunk,with_s0", [
+    (2, 256, 4, 1, 16, 64, True), (1, 150, 4, 2, 32, 50, False),
+    (1, 1100, 2, 1, 64, 100, True), (2, 96, 3, 1, 128, 96, True),
+    (1, 1075, 112, 1, 64, 215, True), (1, 1024, 64, 1, 128, 256, False)],
+    ids=["n16", "n32_g2", "n64_t1100", "n128", "zamba2_t1075",
+         "mamba2_t1024"])
+def test_ssd_scan_backward_kernel_matches_plain_walk_and_float64(
+        cuda, b, t, h, g, n, chunk, with_s0, dtype):
+    """Kernel 5b through ``SSDScanFn``: every input's gradient against
+    float64 autograd of ``ssd_scan_ref`` (2e-3 f32, 2e-2 bf16 of the
+    largest) and, on the forward kernel's own tile states, against the
+    plain reverse walk; bit-identical over two calls.  The forward's y
+    and final state under grad are the bits of a ``no_grad`` call."""
+    x, dt, A, B, C, s0, dy, ds = _ssd_grad_case(cuda, b, t, h, g, n, dtype,
+                                                with_s0)
+    ins = [a.detach().clone().requires_grad_(True) if a is not None
+           else None for a in (x, dt, A, B, C, s0)]
+    before = ssd_scan_bwd.launches
+    y, s = ssd_scan(*ins[:5], chunk, ins[5])
+    (y.float() * dy.float()).sum().add((s * ds).sum()).backward()
+    with torch.no_grad():
+        y0, s_0 = ssd_scan(x, dt, A, B, C, chunk, s0)
+    torch.cuda.synchronize()
+    assert torch.equal(y.detach(), y0) and torch.equal(s.detach(), s_0)
+    assert ssd_scan_bwd.launches == before + 1
+    got = [a.grad if a is not None else None for a in ins]
+    for a, gr in zip(ins, got):
+        if a is not None:
+            assert gr.dtype == a.dtype and torch.isfinite(gr).all()
+    r64 = [a.detach().double().requires_grad_(True) if a is not None
+           else None for a in (x, dt, A, B, C, s0)]
+    ry, rs = ssd_scan_ref(*r64[:5], chunk, r64[5])
+    want = torch.autograd.grad(
+        (ry * dy.double()).sum() + (rs * ds.double()).sum(),
+        [a for a in r64 if a is not None])
+    gaps = _rel_gaps([gr for gr in got if gr is not None], want)
+    assert max(gaps) <= SSD_GRAD_TOL[dtype], gaps
+    # the kernel against its plain walk on the same tile states
+    xk, dtk, Ak, Bk, Ck, s0k = _kernel_inputs(x, dt, A, B, C, chunk, s0)
+    _, _, states = _launch_scan(xk, dtk, Ak, Bk, Ck, s0k, True)
+    k1 = ssd_scan_bwd(xk, dtk, Ak, Bk, Ck, states, dy, ds)
+    k2 = ssd_scan_bwd(xk, dtk, Ak, Bk, Ck, states, dy, ds)
+    assert all(torch.equal(p, q) for p, q in zip(k1, k2))
+    walk = ssd_scan_bwd_ref(*(a.float() for a in (xk, dtk, Ak, Bk, Ck)),
+                            s0k, dy.float(), ds, states=states)
+    gaps = _rel_gaps(k1[:5], walk[:5])
+    if s0 is not None:
+        gaps += _rel_gaps(k1[5:], walk[5:])
+    assert max(gaps) <= SSD_BWD_WALK_RTOL[dtype], gaps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("t,n", [(150, 64), (1100, 128)])
+def test_ssd_scan_states_pointer_leaves_the_outputs_bit_equal(cuda, t, n,
+                                                              dtype):
+    """The forward with the tile-states pointer writes the same y and
+    final state as without (serving passes none), and states that are the
+    plain walk's within the scan's tolerance."""
+    x, dt, A, B, C, s0 = _ssd_case(cuda, 2, t, 3, 1, n, dtype)
+    args = _kernel_inputs(x, dt, A, B, C, 10 if t == 150 else 100, s0)
+    y0, s_0, none = _launch_scan(*args, False)
+    y1, s_1, states = _launch_scan(*args, True)
+    torch.cuda.synchronize()
+    assert none is None and states.shape == (2, 3, -(-t // 64), 64, n)
+    assert torch.equal(y0, y1) and torch.equal(s_0, s_1)
+    want = ssd_tile_states_ref(*(a.float() for a in (x, dt, A, B, C)), s0)
+    assert (states - want).abs().max().item() <= SSD_TOL
+    assert torch.equal(states[:, :, 0], s0)
+
+
+def test_ssd_scan_under_grad_launches_both_kernels_never_the_plain_ones(
+        cuda, monkeypatch):
+    """A CUDA input that requires grad, whichever it is, runs the forward
+    kernel and, in backward, kernel 5b; the plain versions never run.
+    Under no_grad, or with no input requiring grad, only the forward
+    kernel launches and nothing is saved."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    for name in ("ssd_scan_ref", "ssd_scan_bwd_ref", "ssd_tile_states_ref"):
+        monkeypatch.setattr(ops, name, plain)
+    x, dt, A, B, C, s0 = _ssd_case(cuda, 1, 200, 2, 1, 16, torch.float32)
+    f0, b0 = ssd_scan.launches, ssd_scan_bwd.launches
+    for i in range(6):
         args = [x, dt, A, B, C, s0]
         args[i] = args[i].clone().requires_grad_(True)
-        with pytest.raises(RuntimeError, match="no backward"):
-            ssd_scan(*args[:5], 64, args[5])
+        y, s = ssd_scan(*args[:5], 8, args[5])
+        (y.sum() + s.sum()).backward()
+        assert args[i].grad is not None and torch.isfinite(args[i].grad).all()
+        assert [a.grad for j, a in enumerate(args) if j != i] == [None] * 5
         with torch.no_grad():
-            ssd_scan(*args[:5], 64, args[5])
-    ssd_scan(x, dt, A, B, C, 64, s0)
+            y, _ = ssd_scan(*args[:5], 8, args[5])
+        assert y.grad_fn is None
+    y, _ = ssd_scan(x, dt, A, B, C, 8, s0)
+    assert y.grad_fn is None
     torch.cuda.synchronize()
-    assert ssd_scan.launches == before + 7
+    assert ssd_scan.launches == f0 + 13
+    assert ssd_scan_bwd.launches == b0 + 6
+
+
+def test_ssd_scan_bwd_records_its_events_only_when_asked(cuda):
+    """Given a list in ``ssd_scan_bwd.events``, each launch appends the
+    CUDA events recorded around its kernel; with None it appends none."""
+    x, dt, A, B, C, s0, dy, ds = _ssd_grad_case(cuda, 1, 150, 2, 1, 16,
+                                                torch.float32, True)
+    args = _kernel_inputs(x, dt, A, B, C, 50, s0)
+    _, _, states = _launch_scan(*args, True)
+    events = []
+    ssd_scan_bwd.events = events
+    try:
+        ssd_scan_bwd(*args[:5], states, dy, ds)
+    finally:
+        ssd_scan_bwd.events = None
+    ssd_scan_bwd(*args[:5], states, dy, ds)
+    torch.cuda.synchronize()
+    assert len(events) == 1 and events[0][0].elapsed_time(events[0][1]) > 0
+
+
+def test_mamba2_train_step_on_the_card_matches_the_cpu(cuda):
+    """Reduced mamba2-1.3b (at the kernel's head dim of 64) in float32
+    under remat: ``loss_and_grads`` on
+    the card (both scan kernels) against the CPU (plain versions), every
+    leaf within 1e-3 of its largest value; each layer's scan runs twice
+    forward (the recompute) and once backward."""
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    from repro_torch.training.train import (loss_and_grads,
+                                            synthetic_lm_batches)
+    cfg = dataclasses.replace(reduced_config("mamba2-1.3b"),
+                              dtype="float32", remat=True, ssm_headdim=64)
+    params = tf.init_params(5, cfg, device="cpu")
+    batch = next(synthetic_lm_batches(cfg, 2, 150, seed=3, device="cpu"))
+    gpu = tree_map(lambda a: a.detach().to(cuda), params)
+    f0, b0 = ssd_scan.launches, ssd_scan_bwd.launches
+    lg, gg = loss_and_grads(gpu, cfg, {k: v.to(cuda)
+                                       for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert ssd_scan.launches - f0 == 2 * cfg.num_layers
+    assert ssd_scan_bwd.launches - b0 == cfg.num_layers
+    lc, gc_ = loss_and_grads(params, cfg, batch)
+    assert abs(lg.item() - lc.item()) <= 1e-4 * abs(lc.item())
+    for a, b in zip(tree_leaves(gg), tree_leaves(gc_)):
+        gap = (a.cpu() - b).abs().max().item()
+        assert gap <= 1e-3 * b.abs().max().item() + 1e-6, gap
 
 
 @pytest.mark.parametrize("arch", ["whisper-base", "llava-next-34b"])

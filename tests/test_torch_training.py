@@ -123,15 +123,16 @@ def _assert_grads_close(gt, gj, cfg, g64=None):
 
 
 TRAIN_ARCHS = ["smollm-135m", "whisper-base", "llava-next-34b",
-               "granite-moe-3b-a800m", "zamba2-7b"]
+               "granite-moe-3b-a800m", "zamba2-7b", "mamba2-1.3b"]
 
 
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_train_loss_and_every_gradient_match_reference(arch):
     """Reduced float32 configs; granite's loss carries its MoE aux loss,
-    zamba2's runs the SSD scan's plain version (differentiable on the
-    CPU).  whisper-base is the one family where float32 itself cannot
-    hold 1e-4: its random encoder's output, with no final norm, reaches
+    zamba2's and mamba2's run the SSD scan's plain versions (through
+    ``SSDScanFn``: the plain reverse walk is the backward on the CPU).
+    whisper-base is the one family where float32 itself cannot hold
+    1e-4: its random encoder's output, with no final norm, reaches
     ~100, the cross-attention scores a spread of ~30, and the softmax's
     backward cancels over keys that large; the reference's own float32
     gradients lie 3e-4 to 9e-4 of a leaf's largest value from its float64
@@ -156,8 +157,9 @@ def test_train_loss_and_every_gradient_match_reference(arch):
 def test_remat_gives_the_same_gradients():
     """Each layer under ``torch.utils.checkpoint`` (cfg.remat, no cache,
     grad on) recomputes the same forward: equal loss and gradients, on
-    the encoder-decoder stack too."""
-    for arch in ("whisper-base", "smollm-135m"):
+    the encoder-decoder stack and through the SSD scan's Function (its
+    recomputed forward saves its inputs again) too."""
+    for arch in ("whisper-base", "smollm-135m", "mamba2-1.3b"):
         ct = reduced_config(arch)
         _, bt = _batch(ct, 91)
         params = tf.init_params(3, ct, device="cpu")
