@@ -151,7 +151,8 @@ printing one JSON line; any failure raises and the process exits non-zero
 ``python3 chip_smoke.py --scan-only [SERVED]`` runs only the build and
 ``kernels_ssd`` (forward and backward cases) and, given a file holding
 an earlier run's ``serve_zamba2`` line, the scan time over its served
-prefills.  ``--ptxas [LOG]`` prints ptxas's registers and spill bytes
+prefills; ``--train-ssm`` only the build and ``train_ssm``.
+``--ptxas [LOG]`` prints ptxas's registers and spill bytes
 of the scan's kernels, from this checkout's build or from LOG, the
 ``nvcc.log`` of another checkout's (``kernels/build.py`` writes one
 beside its library).
@@ -323,8 +324,10 @@ MAMBA = "mamba2-1.3b"
 #: 2^-9 of a value, and the forward's bf16 pairs)
 SSD_GRAD_TOL = {torch.float32: SSD_TOL, torch.bfloat16: 2e-2}
 #: kernel 5b against its plain reverse walk on the same inputs and tile
-#: states, per input, relative to the largest value: float32 sums in
-#: another order (bf16: dx rounded to bf16 once, 2^-9 of a value, beyond)
+#: states, the products' operands rounded as the kernel's tensor cores take
+#: them (``BWD_P_ROUND``), per input, relative to the largest value:
+#: float32 sums in another order (bf16: dx rounded to bf16 once, 2^-9 of a
+#: value, beyond)
 SSD_BWD_PLAIN_RTOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
 #: (model, heads, state N, batch, tokens t, chunk L, type, initial state,
 #: final state's cotangent): zamba2-7b's and mamba2-1.3b's widths at one
@@ -1799,7 +1802,8 @@ def check_ssd_bwd(shape_name, h, n, b, t, L, dtype, with_s0, with_ds):
     forward kernel's inputs and tile states, beside its plain reverse walk
     ``ssd_scan_bwd_ref`` on the same.  ``design_bytes``: what this design
     moves beyond the function's own bytes (the tile states read, and the
-    per-head dA, dB and dC the kernel writes for the wrapper's sums)."""
+    per-head dA, dB and dC the kernel writes for the wrapper's sums);
+    ``head_sums_ms``: those sums of dB and dC alone (inside ``ms``)."""
     x, dt, A, B, C, s0 = ssd_inputs(h, 64, n, t, dtype, b=b)
     s0 = s0 if with_s0 else None
     g = torch.Generator(device=DEV)
@@ -1848,14 +1852,20 @@ def check_ssd_bwd(shape_name, h, n, b, t, L, dtype, with_s0, with_ds):
     tol = SSD_GRAD_TOL[dtype]
     assert max(rel.values()) <= tol, \
         f"ssd_bwd {shape_name} {dtype} t={t}: {rel}"
-    # the wrapper against its plain reverse walk on the same inputs and
-    # the tile states the forward kernel wrote
+    # the wrapper against its plain reverse walk (the kernel's rounding) on
+    # the same inputs and the tile states the forward kernel wrote
     args = ssd_ops._kernel_inputs(x, dt, A, B, C, L, s0)
     _, _, states = ssd_ops._launch_scan(*args, True)
     run = lambda: ssd_ops.ssd_scan_bwd(*args[:5], states, dy, ds,
                                        with_ds0=with_s0)
     plain = lambda: ssd_ops.ssd_scan_bwd_ref(
-        *(a.float() for a in args[:5]), s0, dy, ds, states=states)
+        *(a.float() for a in args[:5]), s0, dy, ds, states=states,
+        p_round=ssd_ops.BWD_P_ROUND[dtype])
+    # the wrapper's sums of the per-head dB and dC over a group's heads
+    grp = B.shape[2]
+    parts = [torch.empty((b, t, h, n), device=DEV) for _ in range(2)]
+    head_sums = lambda: [q.view(b, t, grp, h // grp, n).sum(3)
+                         for q in parts]
     plain_rel = {name: ((k.float() - w).abs().max()
                         / w.abs().max().clamp_min(1e-30)).item()
                  for name, k, w in zip(names, run(), plain())
@@ -1876,6 +1886,7 @@ def check_ssd_bwd(shape_name, h, n, b, t, L, dtype, with_s0, with_ds):
                              "per_head_partials_written":
                                  4 * (b * h + 2 * b * t * h * n)},
             "ms": time_ms(run), "plain_ms": time_ms(plain),
+            "head_sums_ms": time_ms(head_sums),
             "library_ms": None,
             "library": "none: no single PyTorch call computes the scan's "
                        "gradient",
@@ -3155,6 +3166,10 @@ def main(argv):
     assert torch.backends.cuda.matmul.allow_tf32 is False
     if argv[:1] == ["--scan-only"]:
         return scan_only(argv[1:])
+    if argv[:1] == ["--train-ssm"]:
+        build.load_library()
+        phase_train_ssm()
+        return 0
     if argv[:1] == ["--ptxas"]:
         if len(argv) == 1:
             build.load_library()

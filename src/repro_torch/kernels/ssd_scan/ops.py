@@ -470,7 +470,32 @@ def ssd_tile_states_ref(x, dt, A, B, C, init_state=None):
     return _walk_states(xf, dtf, Bh, cum64, init_state)[0].transpose(1, 2)
 
 
-def ssd_scan_bwd_ref(x, dt, A, B, C, init_state, dy, dsfin, states=None):
+#: the products of the reverse walk (:func:`ssd_scan_bwd_ref`), each named
+#: by its two operands: the scores C B^T of M, dy x^T of D, then M^T dy and
+#: B dS^T (the gradient of x dt), dy S and P B (dC), P^T C and x dS (dB),
+#: and (e dy)^T C (the gradient of the entering state)
+BWD_PRODUCTS = ("cb", "dyx", "m_dy", "b_ds", "dy_s", "p_b", "p_c", "x_ds",
+                "edy_c")
+#: how the backward kernel rounds each product's operands, by the inputs'
+#: type: pairs for all.  bf16 inputs (x, B, C, dy) enter as they are (their
+#: pair is the value and a zero) and every computed operand (M, P, e dy,
+#: S, dS) as a pair, the forward's choice; float32 inputs enter as pairs
+#: too.  Unlike the forward's absolute 2e-3 on y, the gradients are held
+#: relative to their largest value, and on the CPU walk against
+#: ``jax.grad`` pairs stay within 8.1e-5 (float32) and 9.8e-6 (bf16 values)
+#: of it, against half-tolerances of 1e-3 and 1e-2
+#: (``tests/test_torch_ssd_grad.py``), so no product needs a third piece
+#: (x, dy, B and C in three pieces would not fit shared memory at N 128).
+#: One bf16 rounding instead reaches 1.2e-2 with float32 inputs and 3.0e-3
+#: with bf16 ones.
+BWD_P_ROUND = {
+    torch.bfloat16: dict.fromkeys(BWD_PRODUCTS, "pair"),
+    torch.float32: dict.fromkeys(BWD_PRODUCTS, "pair"),
+}
+
+
+def ssd_scan_bwd_ref(x, dt, A, B, C, init_state, dy, dsfin, states=None,
+                     *, p_round=None):
     """The backward kernel's plain version: the reverse tile walk, written
     with explicit sums (no ``torch.autograd``).  ``dy`` is y's cotangent
     and ``dsfin`` the final state's (either may be None); ``states`` the
@@ -485,25 +510,31 @@ def ssd_scan_bwd_ref(x, dt, A, B, C, init_state, dy, dsfin, states=None):
     state, ``xdt_j = x_j dt_j`` and dS the gradient of the state leaving
     the tile (from ``dsfin`` at the last tile):
 
-    * ``M_ij = (C_i . B_j) L_ij``, ``D_ij = dy_i . xdt_j``, ``P = D L``;
+    * ``M_ij = (C_i . B_j) L_ij``, ``D_ij = (dy_i . x_j) dt_j``, ``P = D
+      L``;
     * ``d(xdt)_j = sum_i M_ij dy_i + w_j dS B_j``, so ``dx_j = d(xdt)_j
       dt_j`` and ddt_j gains ``d(xdt)_j . x_j``;
     * ``dC_i = e_i S^T dy_i + sum_j P_ij B_j``;
-    * ``dB_j = sum_i P_ij C_i + w_j dS^T xdt_j``;
+    * ``dB_j = sum_i P_ij C_i + w_j dt_j dS^T x_j``;
     * ``dcum_i = sum_j M_ij D_ij - sum_j M_ji D_ji + e_i C_i . S^T dy_i
       - R_i`` with ``R_j = w_j xdt_j . dS B_j``, and the last entry gains
       ``d seg = exp(seg) <dS, S> + sum_j R_j``; its reverse cumulative sum
       is ``d(dt A)``, so ddt gains ``d(dt A) A`` and dA is ``sum d(dt A)
       dt``;
-    * the state entering the tile gets ``exp(seg) dS + sum_i e_i dy_i
-      C_i^T``.
+    * the state entering the tile gets ``exp(seg) dS + sum_i (e_i dy_i)^T
+      C_i``.
 
-    dB and dC are summed over the heads of a group, the transpose of the
-    forward's repeat."""
+    ``p_round`` rounds the operands of each product as the kernel's tensor
+    cores take them (:func:`_product`): one mode for all, or a mode for
+    each of :data:`BWD_PRODUCTS` (:data:`BWD_P_ROUND` holds the kernel's);
+    None computes every product exactly.  dB and dC are summed over the
+    heads of a group, the transpose of the forward's repeat."""
     b, t, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     rep = h // g
     ct = _compute_dtype(x)
+    rnd = (p_round if isinstance(p_round, dict)
+           else dict.fromkeys(BWD_PRODUCTS, p_round))
     if states is None:
         states = ssd_tile_states_ref(x, dt, A, B, C, init_state)
     xf = _tiles(x, ct)                                      # [b,c,l,h,p]
@@ -529,20 +560,21 @@ def ssd_scan_bwd_ref(x, dt, A, B, C, init_state, dy, dsfin, states=None):
                       .masked_fill(~causal, NEG_INF))       # [b,i,j,h]
         xc, dtc, Bc, Cc, dyc = (a[:, c] for a in (xf, dtf, Bh, Ch, dyf))
         S = states[:, :, c].to(ct)                          # [b,h,p,n]
-        xdt = xc * dtc[..., None]                           # [b,l,h,p]
-        M = torch.einsum("bihn,bjhn->bijh", Cc, Bc) * L
-        D = torch.einsum("bihp,bjhp->bijh", dyc, xdt)
+        M = _product("bihn,bjhn->bijh", Cc, Bc, rnd["cb"]) * L
+        D = _product("bihp,bjhp->bijh", dyc, xc, rnd["dyx"]) \
+            * dtc[:, None]
         P = D * L
         Q = M * D
-        SB = torch.einsum("bhpn,bjhn->bjhp", dS, Bc)        # dS B_j
-        dxdt = torch.einsum("bijh,bihp->bjhp", M, dyc) + w[..., None] * SB
-        R = w * (xdt * SB).sum(-1)                          # [b,l,h]
-        Sdy = torch.einsum("bihp,bhpn->bihn", dyc, S)       # S^T dy_i
+        SB = _product("bhpn,bjhn->bjhp", dS, Bc, rnd["b_ds"])  # dS B_j
+        dxdt = _product("bijh,bihp->bjhp", M, dyc, rnd["m_dy"]) \
+            + w[..., None] * SB
+        R = w * dtc * (xc * SB).sum(-1)                     # [b,l,h]
+        Sdy = _product("bihp,bhpn->bihn", dyc, S, rnd["dy_s"])  # S^T dy_i
         dCs.append(e[..., None] * Sdy
-                   + torch.einsum("bijh,bjhn->bihn", P, Bc))
-        dBs.append(torch.einsum("bijh,bihn->bjhn", P, Cc)
-                   + w[..., None] * torch.einsum("bjhp,bhpn->bjhn", xdt,
-                                                 dS))
+                   + _product("bijh,bjhn->bihn", P, Bc, rnd["p_b"]))
+        dBs.append(_product("bijh,bihn->bjhn", P, Cc, rnd["p_c"])
+                   + (w * dtc)[..., None]
+                   * _product("bjhp,bhpn->bjhn", xc, dS, rnd["x_ds"]))
         dcum = Q.sum(2) - Q.sum(1) + e * (Cc * Sdy).sum(-1) - R
         dcum[:, -1] += E * (dS * S).sum((-2, -1)) + R.sum(1)
         da = torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1])
@@ -550,7 +582,8 @@ def ssd_scan_bwd_ref(x, dt, A, B, C, init_state, dy, dsfin, states=None):
         ddts.append((dxdt * xc).sum(-1) + da * Af)
         dA = dA + (da * dtc).sum((0, 1))
         dS = E[..., None, None] * dS \
-            + torch.einsum("bih,bihp,bihn->bhpn", e, dyc, Cc)
+            + _product("bihp,bihn->bhpn", e[..., None] * dyc, Cc,
+                       rnd["edy_c"])
 
     def untile(parts):          # tiles last to first -> [b, t, ...]
         a = torch.stack(parts[::-1], dim=1)

@@ -31,8 +31,9 @@ from repro_torch.kernels.decode_attention.ops import (
     paged_decode_attention, paged_decode_attention_ref)
 from repro_torch.kernels.paged_args import gather_pool
 from repro_torch.kernels.ssd_scan.ops import P_ROUND as P_ROUND_SSD
-from repro_torch.kernels.ssd_scan.ops import (_kernel_inputs, _launch_scan,
-                                              ssd_scan, ssd_scan_bwd,
+from repro_torch.kernels.ssd_scan.ops import (BWD_P_ROUND, _kernel_inputs,
+                                              _launch_scan, ssd_scan,
+                                              ssd_scan_bwd,
                                               ssd_scan_bwd_ref, ssd_scan_ref,
                                               ssd_scan_tiled_ref,
                                               ssd_tile_states_ref)
@@ -476,8 +477,9 @@ def test_ssd_scan_takes_inputs_in_mixed_types(cuda, x_dtype):
 #: to bf16 once, 2^-9 of a value, and the forward's bf16 pairs)
 SSD_GRAD_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 #: the backward kernel against its plain walk on the same inputs and tile
-#: states, per input, relative to its largest value: float32 sums in
-#: another order (bf16 outputs: one rounding beyond)
+#: states, the products' operands rounded as the kernel's tensor cores take
+#: them (``BWD_P_ROUND``), per input, relative to its largest value:
+#: float32 sums in another order (bf16 outputs: one rounding beyond)
 SSD_BWD_WALK_RTOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
 
 
@@ -501,9 +503,10 @@ def _rel_gaps(got, want):
 @pytest.mark.parametrize("b,t,h,g,n,chunk,with_s0", [
     (2, 256, 4, 1, 16, 64, True), (1, 150, 4, 2, 32, 50, False),
     (1, 1100, 2, 1, 64, 100, True), (2, 96, 3, 1, 128, 96, True),
-    (1, 1075, 112, 1, 64, 215, True), (1, 1024, 64, 1, 128, 256, False)],
+    (1, 1075, 112, 1, 64, 215, True), (1, 1024, 64, 1, 128, 256, False),
+    (2, 37, 2, 1, 16, 37, True)],
     ids=["n16", "n32_g2", "n64_t1100", "n128", "zamba2_t1075",
-         "mamba2_t1024"])
+         "mamba2_t1024", "t37_one_tile"])
 def test_ssd_scan_backward_kernel_matches_plain_walk_and_float64(
         cuda, b, t, h, g, n, chunk, with_s0, dtype):
     """Kernel 5b through ``SSDScanFn``: every input's gradient against
@@ -542,7 +545,8 @@ def test_ssd_scan_backward_kernel_matches_plain_walk_and_float64(
     k2 = ssd_scan_bwd(xk, dtk, Ak, Bk, Ck, states, dy, ds)
     assert all(torch.equal(p, q) for p, q in zip(k1, k2))
     walk = ssd_scan_bwd_ref(*(a.float() for a in (xk, dtk, Ak, Bk, Ck)),
-                            s0k, dy.float(), ds, states=states)
+                            s0k, dy.float(), ds, states=states,
+                            p_round=BWD_P_ROUND[dtype])
     gaps = _rel_gaps(k1[:5], walk[:5])
     if s0 is not None:
         gaps += _rel_gaps(k1[5:], walk[5:])

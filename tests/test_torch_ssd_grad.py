@@ -15,6 +15,15 @@ explicit sums, is held here, on numpy-made inputs, to
 and y under grad is bit-equal to y under ``no_grad``.  The cases: t of 64
 (one tile), 150 (a ragged last tile) and 1088 (17 tiles: past one
 1024-token slice of the forward kernel), g of 1 and 2.
+
+The same walk with the kernel's rounding (``p_round=BWD_P_ROUND[type]``:
+every product's operands cut into bf16 pairs as the tensor cores take
+them) is held to ``jax.grad`` of ``ssd_chunked`` within half of the
+card's tolerances on the kernel against float64 (2e-3 for float32
+inputs, 2e-2 for bf16 ones, of each gradient's largest value): float32
+inputs, and bf16-valued ones (x, dt, B, C and dy rounded to bf16), at a
+ragged t with two groups, at the kernel's widths (P 64, N 128) and at the
+model's large step sums.
 """
 import jax
 import jax.numpy as jnp
@@ -28,6 +37,10 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 #: a gradient: max |port - reference| <= GRAD_RTOL max |reference| +
 #: GRAD_ATOL
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+#: kernel 5b against float64 autograd on the card, of each gradient's
+#: largest value (``tests/test_torch_gpu.py::SSD_GRAD_TOL``); the rounded
+#: walk is held to half of it
+CARD_GRAD_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 NAMES = ("x", "dt", "A", "B", "C", "init_state")
 
 
@@ -119,3 +132,66 @@ def test_gradients_come_in_their_inputs_types():
     assert s0.grad is None
     y, _ = ssd_ops.ssd_scan(*(a.detach() for a in (x, dt, A, B, C)), 70, s0)
     assert y.grad_fn is None
+
+
+def _bf16_values(a):
+    return torch.from_numpy(a).bfloat16().float().numpy()
+
+
+# b, t, h, p, g, n, chunk, large step sums (A from -1 to -16, as
+# ``init_mamba2``: in-tile sums of dt * A reach ~-800)
+ROUNDED_CASES = [(2, 150, 4, 16, 2, 8, 50, False),
+                 (1, 130, 2, 64, 1, 128, 65, False),
+                 (1, 512, 4, 16, 1, 16, 64, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t,h,p,g,n,chunk,large", ROUNDED_CASES,
+                         ids=["t150_g2", "p64_n128", "large_step_sums"])
+def test_rounded_bwd_ref_is_within_half_the_card_tolerance(
+        b, t, h, p, g, n, chunk, large, dtype):
+    x, dt, A, B, C, s0, dy, ds = _inputs(b, t, h, p, g, n, seed=t + 1)
+    if large:
+        A = -np.linspace(1.0, 16.0, h).astype(np.float32)
+        assert np.abs(np.cumsum(dt[:, :64] * A, axis=1)).max() > 500
+    if dtype == torch.bfloat16:
+        x, dt, B, C, dy = (_bf16_values(a) for a in (x, dt, B, C, dy))
+    ins = (x, dt, A, B, C, s0)
+
+    def loss(*a):
+        y, s = jax_m2.ssd_chunked(*a[:5], chunk, a[5])
+        return jnp.sum(y * dy) + jnp.sum(s * ds)
+
+    ref = jax.jit(jax.grad(loss, argnums=tuple(range(6))))(
+        *(jnp.asarray(a) for a in ins))
+    got = ssd_ops.ssd_scan_bwd_ref(*(_t(a) for a in ins), _t(dy), _t(ds),
+                                   p_round=ssd_ops.BWD_P_ROUND[dtype])
+    tol = CARD_GRAD_TOL[dtype] / 2
+    for name, gp, gr in zip(NAMES, got, ref):
+        gr = np.asarray(gr)
+        assert gp.dtype == torch.float32 and gp.shape == gr.shape, name
+        err = float(np.abs(gp.numpy() - gr).max())
+        assert err <= tol * float(np.abs(gr).max()), (name, err)
+
+
+def test_rounding_reaches_the_walk():
+    """Each product's rounding changes the walk: one bf16 rounding of its
+    operands moves the gradients (far past the pairs' ~1e-5), and the
+    pairs move them from the exact walk."""
+    x, dt, A, B, C, s0, dy, ds = (_t(a) for a in _inputs(1, 70, 2, 16, 1,
+                                                        8, seed=9))
+    exact = ssd_ops.ssd_scan_bwd_ref(x, dt, A, B, C, s0, dy, ds)
+    pairs = ssd_ops.ssd_scan_bwd_ref(
+        x, dt, A, B, C, s0, dy, ds,
+        p_round=ssd_ops.BWD_P_ROUND[torch.float32])
+    for prod in ssd_ops.BWD_PRODUCTS:
+        rnd = dict(ssd_ops.BWD_P_ROUND[torch.float32], **{prod: "bf16"})
+        one = ssd_ops.ssd_scan_bwd_ref(x, dt, A, B, C, s0, dy, ds,
+                                       p_round=rnd)
+        moved = max(float((o - q).abs().max() / q.abs().max())
+                    for o, q in zip(one, pairs))
+        assert moved > 1e-4, prod
+    gap = max(float((q - e).abs().max() / e.abs().max())
+              for q, e in zip(pairs, exact))
+    assert 0 < gap < 1e-4
