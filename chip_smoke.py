@@ -140,6 +140,22 @@ printing one JSON line; any failure raises and the process exits non-zero
                  value; a whisper-base step at full size with audio; a
                  checkpoint round trip (one more step from the saved and
                  the loaded state: losses bit-equal)
+  tp_local       the sharded path on the card: an NCCL group of world 1,
+                 the (1, 1) local mesh, qwen2.5-3b's full-width parameters
+                 and a 2-row dense cache as DTensors (``param_specs``,
+                 ``cache_specs``), a 512-token prefill and 16 greedy
+                 decode steps under hints against the same on plain
+                 tensors: tokens equal, logits bit-equal (else
+                 ``model``'s bf16 rule); kernels 3 and 4 launched on local
+                 shards; the sharded and the plain decode step's ms
+  dryrun         ``python -m repro_torch.launch.dryrun`` in a process of
+                 its own, on the host (a fake process group of 256 / 512
+                 ranks, fake tensors): qwen3-14b prefill_32k, qwen2.5-3b
+                 decode_32k, mamba2-1.3b long_500k, arctic-480b train_4k
+                 (FSDP) on 16x16 and qwen3-14b train_4k on 2x16x16; a
+                 line a case with its peak bytes a rank, the three
+                 roofline terms at the H100's published constants, the
+                 collectives and the trace's seconds
   serve_llava    last, alone on the card: llava-next-34b served text-only
                  on the paged path at full width and (where it fits) its
                  60 layers, two 16-slot instances at max_seq 4096 whose
@@ -151,7 +167,8 @@ printing one JSON line; any failure raises and the process exits non-zero
 ``python3 chip_smoke.py --scan-only [SERVED]`` runs only the build and
 ``kernels_ssd`` (forward and backward cases) and, given a file holding
 an earlier run's ``serve_zamba2`` line, the scan time over its served
-prefills; ``--train-ssm`` only the build and ``train_ssm``.
+prefills; ``--train-ssm`` only the build and ``train_ssm``;
+``--tp-local`` only the build, ``tp_local`` and ``dryrun``.
 ``--ptxas [LOG]`` prints ptxas's registers and spill bytes
 of the scan's kernels, from this checkout's build or from LOG, the
 ``nvcc.log`` of another checkout's (``kernels/build.py`` writes one
@@ -161,8 +178,8 @@ Then one line ``{"kernels": [...]}`` with, for every kernel of the port,
 its launches on the paths that run it (``live``, ``frontend``, ``tiers``
 and ``serve_llava`` for the paged kernels, ``serve_zamba2``,
 ``serve_gemma3``, ``serve_moe``, ``serve_mamba2``, ``model_whisper``,
-``model_llava`` and ``serve_whisper`` for the dense ones, and
-``train_ssm`` for the scan and its backward;
+``model_llava``, ``serve_whisper`` and ``tp_local`` for the dense
+ones, and ``train_ssm`` for the scan and its backward;
 ``launches_by_path`` splits them), its error against the plain
 version and its time beside the plain version's, the card's bound and one
 library call; the card's name and power limit as ``nvidia-smi`` prints
@@ -3113,6 +3130,181 @@ KERNEL_META = {
 }
 
 
+# ---------------------------------------------------------------------------
+# the sharded path: one rank, and the dry-run of the production meshes
+# ---------------------------------------------------------------------------
+
+#: tp_local: rows, prompt tokens, greedy decode steps
+TP_ROWS, TP_PROMPT, TP_STEPS = 2, 512, 16
+
+
+def _tp_run(cfg, params, cache, prompt, mesh=None):
+    """A TP_PROMPT-token prefill and TP_STEPS greedy decode steps; returns
+    (tokens [B, 1 + steps], logits [1 + steps, B, V] float32, the decode
+    steps' ms between CUDA events around each call, the host's enqueueing
+    included).  With ``mesh`` (sharded): every call under hints and
+    implicit replication, the logits gathered whole (one rank: no
+    transfer)."""
+    B = prompt.shape[0]
+    whole = (lambda t: t.full_tensor()) if mesh is not None else \
+        (lambda t: t)
+    toks, logits, step_ms = [], [], []
+    with torch.no_grad(), (_sharded(mesh) if mesh is not None
+                           else contextlib.nullcontext()):
+        last, cache = tf.prefill(params, cfg, prompt, cache,
+                                 torch.zeros(B, dtype=torch.long, device=DEV))
+        last = whole(last)
+        for i in range(TP_STEPS + 1):
+            nxt = last.argmax(-1)
+            toks.append(nxt)
+            logits.append(last.float())
+            if i == TP_STEPS:
+                break
+            a, b = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            a.record()
+            last, cache = tf.decode_step(
+                params, cfg, nxt[:, None], cache,
+                torch.full((B,), TP_PROMPT + i, dtype=torch.long,
+                           device=DEV))
+            last = whole(last)
+            b.record()
+            torch.cuda.synchronize()
+            step_ms.append(a.elapsed_time(b))
+    return torch.stack(toks, 1), torch.stack(logits), step_ms
+
+
+@contextlib.contextmanager
+def _sharded(mesh):
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed import hints
+    with implicit_replication(), hints.hints(("data",), "model", mesh=mesh):
+        yield
+
+
+def phase_tp_local():
+    """The sharded path on the card: an NCCL group of world 1, the
+    (1, 1) local mesh, qwen2.5-3b's full-width parameters sharded by
+    ``param_specs`` and a dense cache for TP_ROWS rows by ``cache_specs``
+    (DTensors), a prefill and greedy decode steps under hints, against
+    the same calls on plain tensors.  The cache writes and kernels 3 and 4
+    run on local shards (``local_map``); the sharded run must launch both.
+    Returns its launches."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_local_mesh
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda:0"))
+    try:
+        mesh = make_local_mesh(model=1)
+        cfg = get_config(MODEL)
+        S = TP_PROMPT + TP_STEPS
+        params = tf.init_params(0, cfg, device=DEV)
+        rng = np.random.default_rng(31)
+        prompt = torch.from_numpy(rng.integers(
+            1, cfg.vocab_size, size=(TP_ROWS, TP_PROMPT))).to(DEV)
+        plain = _tp_run(cfg, params, tf.init_cache(cfg, TP_ROWS, S,
+                                                   device=DEV), prompt)
+        dparams = shd.shard(mesh, shd.param_specs(cfg, 1), params)
+        dcache = shd.shard(mesh, shd.cache_specs(cfg, mesh, TP_ROWS, S),
+                           tf.init_cache(cfg, TP_ROWS, S, device=DEV))
+        rows = lambda t: shd.shard(mesh, shd.P(("data",)), t)
+        reset_counts(DENSE_KERNELS)
+        sharded = _tp_run(cfg, dparams, dcache, rows(prompt), mesh)
+        launches = launch_counts(("decode_attention",
+                                  "chunked_prefill_attention"))
+        assert all(n > 0 for n in launches.values()), launches
+        tokens_equal = torch.equal(plain[0], sharded[0])
+        bit_equal = torch.equal(plain[1], sharded[1])
+        rule = None
+        if not bit_equal:
+            # phase_model's bf16 rule: no further from the float32 plain
+            # result than the bf16 plain run is (x 1.5 + slack)
+            ref = _tp_run(cfg, _float_tree(params),
+                          tf.init_cache(cfg, TP_ROWS, S, dtype=torch.float32,
+                                        device=DEV), prompt)
+            err = lambda a: max(
+                ((a[1][i] - ref[1][i]).abs().max()
+                 / ref[1][i].abs().max().clamp_min(1.0)).item()
+                for i in range(TP_STEPS + 1))
+            rule = {"sharded_vs_f32": err(sharded), "plain_vs_f32": err(plain)}
+            assert rule["sharded_vs_f32"] <= 1.5 * rule["plain_vs_f32"] \
+                + MODEL_TOL_BF16_SLACK, rule
+        assert tokens_equal, (plain[0], sharded[0])
+        emit("tp_local", model=cfg.name, mesh=list(mesh.shape),
+             backend=dist.get_backend(), rows=TP_ROWS, prompt=TP_PROMPT,
+             decode_steps=TP_STEPS,
+             cache_placements=str(dcache["k"].placements),
+             tokens_equal=tokens_equal, logits_bit_equal=bit_equal,
+             bf16_rule=rule, launches=launches,
+             decode_step_ms_sharded=sum(sharded[2]) / TP_STEPS,
+             decode_step_ms_plain=sum(plain[2]) / TP_STEPS,
+             decode_step_ms_sharded_all=sharded[2],
+             decode_step_ms_plain_all=plain[2])
+        del params, dparams, dcache
+        return launches
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+#: the dry-run's cases here (ARCH:SHAPE:single|multi); the --all run
+#: traces every applicable case on both meshes
+DRYRUN_CASES = ("qwen3-14b:prefill_32k:single", "qwen2.5-3b:decode_32k:single",
+                "mamba2-1.3b:long_500k:single", "arctic-480b:train_4k:single",
+                "qwen3-14b:train_4k:multi")
+
+
+def phase_dryrun():
+    """``python -m repro_torch.launch.dryrun`` on the production meshes, in
+    a process of its own (its fake process group of 256 / 512 ranks and
+    NCCL's cannot share one), on the host: one line a case with its peak
+    bytes a rank, the three roofline terms (H100 constants), the dominant
+    one, the collectives and the trace's seconds.  Any failed case fails
+    the phase."""
+    out_dir = Path(__file__).resolve().parent / "chiprun_out" / "dryrun_torch"
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+           "--runs-dir", str(out_dir)]
+    for c in DRYRUN_CASES:
+        cmd += ["--case", c]
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                       timeout=900)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        print(r.stdout[-4000:], r.stderr[-4000:], file=sys.stderr)
+        raise RuntimeError(f"dryrun exited {r.returncode}")
+    for c in DRYRUN_CASES:
+        arch, shape, mesh = c.split(":")
+        name = "2x16x16" if mesh == "multi" else "16x16"
+        with open(out_dir / f"{arch}__{shape}__{name}.json") as f:
+            rec = json.load(f)
+        roof = rec["roofline"]
+        emit("dryrun", arch=arch, shape=shape, mesh=name,
+             note=rec["note"], hints=rec["hints"],
+             peak_gb_per_rank=rec["peak_bytes_per_device"] / 1e9,
+             arg_gb_per_rank=rec["arg_bytes"] / 1e9,
+             compute_s=roof["compute_s"], memory_s=roof["memory_s"],
+             collective_s=roof["collective_s"], dominant=roof["dominant"],
+             collective_link=roof["collective_link"],
+             collectives=rec["collectives"],
+             collective_gb_by_op={k: v / 1e9 for k, v in
+                                  rec["collective_bytes_by_op"].items()},
+             flops_per_rank=rec["flops_per_device"],
+             useful_flops_ratio=roof["useful_flops_ratio"],
+             fits_hbm=roof["fits_hbm"], trace_s=rec["trace_s"],
+             torch=rec["torch"])
+    emit("dryrun_total", cases=len(DRYRUN_CASES), seconds=wall,
+         constants="H100 published (core/hw.py), host trace, not card time")
+
+
 def kernels_line(cases, by_path):
     """One entry a kernel, at the shape of the main path that runs it;
     ``launches`` sums the paths that run it (``by_path``: path -> kernel
@@ -3166,6 +3358,11 @@ def main(argv):
     assert torch.backends.cuda.matmul.allow_tf32 is False
     if argv[:1] == ["--scan-only"]:
         return scan_only(argv[1:])
+    if argv[:1] == ["--tp-local"]:
+        build.load_library()
+        phase_tp_local()
+        phase_dryrun()
+        return 0
     if argv[:1] == ["--train-ssm"]:
         build.load_library()
         phase_train_ssm()
@@ -3279,6 +3476,8 @@ def main(argv):
     phase_train()
     by_path["train_ssm"] = phase_train_ssm()
     phase_train_grad()
+    by_path["tp_local"] = phase_tp_local()
+    phase_dryrun()
     # last, with nothing else on the card: llava-next-34b's weights fill
     # most of it
     by_path["serve_llava"] = phase_serve_llava()

@@ -43,7 +43,9 @@ class HardwareSpec:
     ici_bw: float = 450e9               # bytes/s each way over NVLink
     ici_links: int = 1                  # one aggregate NVLink port a card
     dcn_bw: float = 50e9                # bytes/s between hosts (one 400 Gb/s
-                                        # NIC a card, DGX H100); unread so far
+                                        # NIC a card, DGX H100): the
+                                        # dry-run's collective term on a
+                                        # mesh beyond one host
 
     # achieved-efficiency derates, measured (see module docstring):
     prefill_mfu: float = 0.30           # share of peak_flops in prefill

@@ -11,7 +11,10 @@ already applied at their absolute position, so reads are position-free.
 Masks are computed analytically from the per-row write position.
 
 Where the reference returns an updated copy of a donated cache buffer,
-the port UPDATES THE CACHE IN PLACE and returns the same tensors.
+the port UPDATES THE CACHE IN PLACE and returns the same tensors.  On
+DTensor parameters and caches (the sharded path, ``distributed/``) the
+cache writes, the kernels' calls and the attention products run on each
+rank's local shards (``hints.local``).
 
 The cache read goes through the hand-written kernels' wrappers — paged
 decode / chunked prefill over a block pool, dense decode / chunked
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import hints
 from repro_torch.kernels.chunked_prefill_attention.ops import (
     chunked_prefill_attention, paged_chunked_prefill_attention)
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
@@ -65,9 +69,12 @@ def _project_qkv(p, cfg, x):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, T, hq, dh)
-    k = k.reshape(B, T, hkv, dh)
-    v = v.reshape(B, T, hkv, dh)
+    q = hints.whole_axis(q, hq).reshape(B, T, hq, dh)
+    k = hints.whole_axis(k, hkv).reshape(B, T, hkv, dh)
+    v = hints.whole_axis(v, hkv).reshape(B, T, hkv, dh)
+    # pin the KV-head axis to the model axis where hints are installed
+    k = hints.constrain_heads(k)
+    v = hints.constrain_heads(v)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -79,15 +86,18 @@ def _gqa_scores(q, k):
     B, T, hq, dh = q.shape
     hkv = k.shape[2]
     g = hq // hkv
-    qg = q.reshape(B, T, hkv, g, dh)
-    return torch.einsum("btkgd,bskd->bkgts", qg, k) * (dh ** -0.5)
+    if hints.active():
+        # the query heads split into (KV head, group): the KV-head axis
+        # on the model axis, as the keys' own
+        q = hints.constrain_heads(q, groups=hkv)
+        k = hints.constrain_heads(k)
+    qg = hints.whole_axis(q, hkv, axis=2).reshape(B, T, hkv, g, dh)
+    return hints.einsum("btkgd,bskd->bkgts", qg, k) * (dh ** -0.5)
 
 
 def _gqa_out(probs, v, wo):
     """probs [B,Hkv,G,T,S], v [B,S,Hkv,D] -> [B,T,d_model]."""
-    B, hkv, g, T, S = probs.shape
-    out = torch.einsum("bkgts,bskd->btkgd", probs, v)
-    out = out.reshape(B, T, hkv * g * v.shape[-1])
+    out = hints.flatten_heads(hints.einsum("bkgts,bskd->btkgd", probs, v))
     return out @ wo
 
 
@@ -195,6 +205,11 @@ def write_cache(cache_k, cache_v, k_new, v_new, start, valid_len=None):
     own (distinct) slot and writes back what the slot already holds, so
     the scatter keeps a fixed shape and needs no spare slot.
     """
+    if hints.is_sharded(cache_k):
+        # a rank writes the slots it holds; the plain body below needs
+        # none of that body's gathers of the new KV
+        return _write_cache_sharded(cache_k, cache_v, k_new, v_new, start,
+                                    valid_len)
     B, T = k_new.shape[:2]
     S = cache_k.shape[1]
     dev = k_new.device
@@ -211,6 +226,65 @@ def write_cache(cache_k, cache_v, k_new, v_new, start, valid_len=None):
     cache_k[bidx, slots] = k_new
     cache_v[bidx, slots] = v_new
     return cache_k, cache_v
+
+
+def _write_cache_local(cache_k, cache_v, k_new, v_new, start, valid_len,
+                       offset: int, S: int):
+    """:func:`write_cache` on one rank's shard of a cache whose slot axis
+    (S in all) is split: the shard holds slots ``offset ..`` of each row.
+    A token whose slot lies elsewhere writes, at the nearest slot of the
+    shard, the value that slot ends with (the new value of the token
+    that owns it, else the old one), so that the scatter keeps a fixed
+    shape and its duplicate indices all carry one value."""
+    B, T = k_new.shape[:2]
+    S_loc = cache_k.shape[1]
+    dev = k_new.device
+    start = start.long()[:, None]
+    slot = (start + torch.arange(T, device=dev)[None, :]) % S
+    j = torch.clamp(slot - offset, 0, S_loc - 1)
+    writer = torch.remainder(offset + j - start, S)      # token owning j
+    n = valid_len.long()[:, None] if valid_len is not None else T
+    keep = (writer < n)[:, :, None, None]
+    bidx = torch.arange(B, device=dev)[:, None].expand(B, T)
+    wcl = torch.clamp(writer, max=T - 1)
+    for cache, new in ((cache_k, k_new), (cache_v, v_new)):
+        new = new.to(cache.dtype)
+        cache[bidx, j] = torch.where(keep, new[bidx, wcl], cache[bidx, j])
+
+
+def _write_cache_sharded(cache_k, cache_v, k_new, v_new, start, valid_len):
+    """:func:`write_cache` into DTensor caches, in place on each rank's
+    shard (an in-place write cannot change a DTensor's placements).  The
+    new KV follows the cache's batch and head splits and is whole along
+    T; where the cache splits its slot axis, each rank writes the slots
+    it holds."""
+    from torch.distributed.tensor import Shard
+    mesh = cache_k.device_mesh
+    cpl = tuple(cache_k.placements)
+    new_pl = hints.placements_for(cache_k, (0, None, 2, 3))
+    vec_pl = hints.placements_for(cache_k, (0,))
+    s_dims = [i for i, p in enumerate(cpl)
+              if isinstance(p, Shard) and p.dim == 1]
+    S = cache_k.shape[1]
+
+    def local(ck, cv, kn, vn, st, vl):
+        shard = 0                       # this rank's shard along S
+        for i in s_dims:
+            shard = shard * mesh.size(i) + mesh.get_local_rank(i)
+        _write_cache_local(ck, cv, kn, vn, st, vl, shard * ck.shape[1], S)
+
+    hints.local_call(local, (cache_k, cache_v, k_new, v_new, start,
+                             valid_len),
+                     (cpl, cpl, new_pl, new_pl, vec_pl, vec_pl), None, mesh)
+    return cache_k, cache_v
+
+
+#: axis maps (``hints.local``) of a dense read on local shards, against
+#: the cache [B, S, Hkv, D]: the cache whole along S (a slot-split cache
+#: is gathered), q [B, Hq, D] / [B, T, Hq, D] split as its rows and its
+#: KV heads, a per-row vector as the rows
+_KV, _Q1, _QT, _ROWS = (0, None, 2, None), (0, 2, None), \
+    (0, None, 2, None), (0,)
 
 
 def self_attention(p, cfg, x, positions, cache=None, *, window: int = 0,
@@ -271,8 +345,9 @@ def self_attention(p, cfg, x, positions, cache=None, *, window: int = 0,
     if T == 1:
         # decode: the dense decode kernel over each row's first
         # position + 1 keys
-        o = decode_attention(q[:, 0], ck, cv,
-                             (positions[:, -1] + 1).to(torch.int32))[:, None]
+        o = hints.local(decode_attention, ck, in_dims=(_Q1, _KV, _KV, _ROWS),
+                        out_dims=_Q1)(
+            q[:, 0], ck, cv, (positions[:, -1] + 1).to(torch.int32))[:, None]
         if held is not None:
             write_cache(ck, cv, held[0][:, None], held[1][:, None],
                         positions[:, 0], 1 - valid_len)
@@ -280,7 +355,11 @@ def self_attention(p, cfg, x, positions, cache=None, *, window: int = 0,
         # exact-shape chunk: the dense chunked-prefill kernel takes one
         # offset for the batch (the engine prefills dense rows one slot
         # at a time)
-        o = chunked_prefill_attention(q, ck, cv, positions[0, 0])
+        o = hints.local(
+            lambda q, k, v, start: chunked_prefill_attention(q, k, v,
+                                                             start[0]),
+            ck, in_dims=(_QT, _KV, _KV, _ROWS), out_dims=_QT)(
+                q, ck, cv, positions[:, 0])
     else:
         # T-padded rows of unequal offsets: masked softmax over the cache
         S = ck.shape[1]
@@ -333,6 +412,30 @@ def _paged_attention(p, cfg, x, q, k, v, positions, cache, block_tables,
     (chunked prefill, and the decode rows with ``valid == 1`` of a mixed
     batch) to the paged chunked-prefill kernel."""
     B, T, _ = x.shape
+    names = sorted(cache)
+    bs = block_tables[1]
+
+    def core(q, k, v, positions, tables, valid_len, write_dest, *leaves):
+        return _paged_core(q, k, v, positions, dict(zip(names, leaves)),
+                           (tables, bs), valid_len, write_dest)
+
+    # on DTensor pools [P + 1, Hkv, D], on local shards: a pool has no row
+    # axis, so every rank takes every row (q, the new KV, the tables
+    # whole along B) and its own KV heads where the pools split them
+    heads = (None, None, 1, None)
+    o = hints.local(
+        core, cache["k"], in_dims=(heads,) * 3 + ((),) * 4 + tuple(
+            tuple(range(cache[n].ndim)) for n in names),
+        out_dims=heads)(q, k, v, positions, block_tables[0], valid_len,
+                        write_dest, *(cache[n] for n in names))
+    out = o.reshape(B, T, -1).to(x.dtype) @ p["wo"]
+    return out, cache
+
+
+def _paged_core(q, k, v, positions, cache, block_tables, valid_len,
+                write_dest):
+    """The pool write and the paged kernel's read -> o [B, T, Hq, D]."""
+    B, T = q.shape[:2]
     tables, bs = block_tables
     quant = "k_scale" in cache
     scales = {}
@@ -353,15 +456,12 @@ def _paged_attention(p, cfg, x, q, k, v, positions, cache, block_tables,
         o = paged_decode_attention(
             q[:, 0], ck, cv, tables, (positions[:, -1] + 1).to(torch.int32),
             block_size=bs, **scales)
-        o = o[:, None]
-    else:
-        valid = (valid_len if valid_len is not None
-                 else torch.full((B,), T, dtype=torch.int32, device=x.device))
-        o = paged_chunked_prefill_attention(
-            q, ck, cv, tables, positions[:, 0].to(torch.int32),
-            valid.to(torch.int32), block_size=bs, **scales)
-    out = o.reshape(B, T, -1).to(x.dtype) @ p["wo"]
-    return out, cache
+        return o[:, None]
+    valid = (valid_len if valid_len is not None
+             else torch.full((B,), T, dtype=torch.int32, device=q.device))
+    return paged_chunked_prefill_attention(
+        q, ck, cv, tables, positions[:, 0].to(torch.int32),
+        valid.to(torch.int32), block_size=bs, **scales)
 
 
 def init_cross_attention(gen: torch.Generator, cfg):
@@ -392,7 +492,8 @@ def project_cross_kv(p, cfg, enc_out):
     v = enc_out @ p["wv"]
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
-    return {"k": k.reshape(B, S, hkv, dh), "v": v.reshape(B, S, hkv, dh)}
+    return {"k": hints.whole_axis(k, hkv).reshape(B, S, hkv, dh),
+            "v": hints.whole_axis(v, hkv).reshape(B, S, hkv, dh)}
 
 
 def encoder_attention(p, cfg, x, positions, rope_cs=None):

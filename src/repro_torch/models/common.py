@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import hints
+
 # float32 matrix products stay full float32 on the card (no TF32): the
 # parity tolerances against the reference are stated for that.
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -14,7 +16,10 @@ torch.backends.cuda.matmul.allow_tf32 = False
 
 def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None):
     """Truncated-normal fan-in init (LLaMA-style), drawn from ``gen`` on
-    the generator's device."""
+    the generator's device.  On the ``meta`` device nothing is drawn (see
+    ``transformer.abstract_params``)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) > 1 else shape[-1]
     if scale is None:
         scale = fan_in ** -0.5
@@ -88,14 +93,49 @@ def mlp(params, x):
 # Losses
 # ---------------------------------------------------------------------------
 
+def _xent_split_vocab(logits, labels):
+    """The cross-entropy of DTensor logits whose vocabulary may be split
+    across ranks, on local shards: each rank's max, then its sum of
+    exponentials and its pick of the label's logit (where its slice of
+    the vocabulary holds it) reduce across ranks as [B, T] floats.
+    DTensor's own logsumexp and gather move whole-vocabulary logits (or
+    their gradients) on every rank."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, v = logits.device_mesh, logits.ndim - 1
+    xpl = tuple(Replicate() if isinstance(p, Partial) else p
+                for p in logits.placements)
+    split = lambda p: isinstance(p, Shard) and p.dim == v
+    red = lambda op: tuple(Partial(op) if split(p) else p for p in xpl)
+    rows = tuple(Replicate() if split(p) else p for p in xpl)
+    m = hints.local_call(lambda x: x.amax(-1), (logits,), (xpl,),
+                         red("max"), mesh).redistribute(mesh, rows).detach()
+    ids = hints.split_like(torch.arange(logits.shape[-1],
+                                        device=logits.device), logits, (v,))
+
+    def local(x, m, lab, ids):
+        hit = lab[..., None].long() == ids
+        return (torch.exp(x - m[..., None]).sum(-1),
+                torch.where(hit, x, torch.zeros((), device=x.device)).sum(-1))
+
+    sums, picked = hints.local_call(
+        local, (logits, m, labels, ids),
+        (xpl, rows, hints.placements_for(logits, tuple(range(v))),
+         hints.placements_for(logits, (v,))),
+        [red("sum"), red("sum")], mesh)
+    return m + torch.log(sums) - picked
+
+
 def softmax_xent(logits, labels, mask=None):
     """Mean cross-entropy over valid positions, in float32.  logits [...,
     V], labels [...] integer, mask [...] or None (every position valid);
     the divisor is the mask's sum floored at 1."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - ll
+    if hints.is_sharded(logits):
+        nll = _xent_split_vocab(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        nll = logz - ll
     if mask is None:
         return nll.mean()
     mask = mask.float()

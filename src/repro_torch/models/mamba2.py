@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import hints
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.common import dense_init, rms_norm
 
@@ -113,7 +114,10 @@ def mamba2_block(p, cfg, x, cache=None, *, valid_len=None):
             "valid_len on a Mamba2 layer is a decode row mask: padded "
             "prefill would advance recurrent state through the padding")
 
-    zxbcdt = x @ p["in_proj"]
+    # gathered whole before the uneven split below (a DTensor's split
+    # gathers it anyway; this way its gradient comes back split as the
+    # product's, which the weight's gradient product can take)
+    zxbcdt = hints.whole_axis(x @ p["in_proj"], 1)
     z, xBC, dt_raw = torch.split(zxbcdt, [dinner, conv_channels(cfg), H],
                                  dim=-1)
     conv_state = cache["conv"] if cache is not None else None
@@ -130,15 +134,29 @@ def mamba2_block(p, cfg, x, cache=None, *, valid_len=None):
     if T == 1:
         st = init_state if init_state is not None else torch.zeros(
             (B, H, P, N), dtype=torch.float32, device=x.device)
-        y, new_state = ssd_decode_step(xs[:, 0], dt[:, 0], A, Bmat[:, 0],
-                                       Cmat[:, 0], st)
+        # on DTensors, on local shards: rows and heads split as the
+        # state [B, H, P, N] splits them, B and C by rows only
+        y, new_state = hints.local(
+            ssd_decode_step, st,
+            in_dims=((0, 1, None), (0, 1), (1,), (0, None, None),
+                     (0, None, None), (0, 1, 2, 3)),
+            out_dims=[(0, 1, None), (0, 1, 2, 3)])(
+                xs[:, 0], dt[:, 0], A, Bmat[:, 0], Cmat[:, 0], st)
         y = y[:, None]
     else:
         chunk = scan_chunk(cfg, T)
         # dt rounds to the activation type before the scan, as in the
-        # reference
-        y, new_state = ssd_ops.ssd_scan(xs, dt.to(x.dtype), A, Bmat, Cmat,
-                                        chunk, init_state)
+        # reference.  On DTensors, on local shards: rows and heads split
+        # as the initial state [B, H, P, N] splits them (as x [B, T, H, P]
+        # does without one), B and C [B, T, G, N] by rows only
+        ref, h = (xs, 2) if init_state is None else (init_state, 1)
+        rows = (0, None, None, None)
+        y, new_state = hints.local(
+            ssd_ops.ssd_scan, ref,
+            in_dims=((0, None, h, None), (0, None, h), (h,), rows, rows,
+                     None, (0, h, None, None)),
+            out_dims=[(0, None, h, None), (0, h, None, None)])(
+                xs, dt.to(x.dtype), A, Bmat, Cmat, chunk, init_state)
     y = y + xs * p["D"][None, None, :, None].to(y.dtype)
     y = y.reshape(B, T, dinner)
     y = rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm_w"],
@@ -152,8 +170,8 @@ def mamba2_block(p, cfg, x, cache=None, *, valid_len=None):
                                    cache["conv"])
             new_state = torch.where(keep[:, None, None, None], new_state,
                                     cache["ssm"])
-        cache["conv"].copy_(new_conv)
-        cache["ssm"].copy_(new_state)
+        cache["conv"].copy_(hints.split_like(new_conv, cache["conv"]))
+        cache["ssm"].copy_(hints.split_like(new_state, cache["ssm"]))
     return out, cache
 
 

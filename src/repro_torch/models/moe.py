@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import hints
 from repro_torch.models.common import dense_init
 
 
@@ -50,23 +51,39 @@ def init_moe(gen: torch.Generator, cfg):
 
 
 def _route(p, cfg, x):
-    """x [..., d] -> (weights [..., k] float32, idx [..., k], aux_loss).
+    """x [B, T, d] -> (weights [B, T, k] float32, idx [B, T, k],
+    aux_loss).
 
     Top-k of the float32 router logits, highest first and, between equal
     logits, the lower expert first (``jax.lax.top_k``'s order, which
     ``torch.topk`` does not promise: a stable descending sort keeps it);
     the weights are the softmax over the k values; the aux loss is the
-    Switch-style load-balance loss."""
-    logits = x.float() @ p["router"]
+    Switch-style load-balance loss.  On DTensors the routing runs on
+    local shards (tokens split as x's rows and T are, the router whole)
+    and each rank's token sums reduce across ranks; DTensor's products
+    would take the routing's gradient back through strided splits of the
+    flattened tokens."""
     k, E = cfg.top_k, cfg.num_experts
+    tok = (0, 1, None)
+    weights, idx, probs, chosen = hints.local(
+        lambda x, router: _route_core(x, router, k, E), x,
+        in_dims=(tok, ()),
+        out_dims=[tok, tok, hints.Summed((None,), over=(0, 1)),
+                  hints.Summed((None,), over=(0, 1))])(x, p["router"])
+    n = x.numel() // x.shape[-1]                    # tokens
+    aux = E * ((probs / n) * (chosen / n / k)).sum()
+    return weights, idx, aux
+
+
+def _route_core(x, router, k: int, E: int):
+    """-> (weights, idx, the router's probabilities summed over the
+    tokens [E], the choices summed over the tokens [E])."""
+    logits = x.float() @ router
     vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
     vals, idx = vals[..., :k], idx[..., :k]
-    weights = torch.softmax(vals, dim=-1)
-    probs = torch.softmax(logits, dim=-1)
-    me = probs.reshape(-1, E).mean(dim=0)
-    ce = _one_hot(idx, E).float().sum(dim=-2).reshape(-1, E).mean(dim=0) / k
-    aux = E * (me * ce).sum()
-    return weights, idx, aux
+    probs = torch.softmax(logits, dim=-1).reshape(-1, E).sum(dim=0)
+    chosen = _one_hot(idx, E).float().sum(dim=-2).reshape(-1, E).sum(dim=0)
+    return torch.softmax(vals, dim=-1), idx, probs, chosen
 
 
 def _one_hot(idx, E: int):
@@ -87,7 +104,35 @@ def _expert_ffn(p, xg):
 def _dispatch_combine(p, cfg, xt, weights, idx, capacity: int):
     """Dispatch the tokens of each batch row of xt [R, N, d] with routing
     weights / idx [R, N, k] into grouped [R, E, C, d], run the experts,
-    combine back to [R, N, d]."""
+    combine back to [R, N, d].
+
+    On DTensors the dispatch and the combine run on local shards, the
+    experts between them as DTensor products (expert-parallel where the
+    weights split their expert axis).  Every rank dispatches whole
+    dispatch rows (a rank holds the rows R its data shard holds, and all
+    N tokens of each: a global decode dispatch gathers its tokens
+    first), so each expert's capacity is the one the whole row shares."""
+    tok, slot, grp = (0, None, None), (0, None), (0, None, None, None)
+    xg, fe, pie = hints.local(
+        lambda x, i: _dispatch(cfg, x, i, capacity), xt,
+        in_dims=(tok, tok), out_dims=[grp, slot, slot])(xt, idx)
+    if hints.is_sharded(xg):
+        # the experts as products batched over E alone ([E, R * C, d]): a
+        # product that broadcasts over R flattens R with E, which a split
+        # DTensor's products cannot take
+        R, E, C, d = xg.shape
+        ye = _expert_ffn(p, xg.permute(1, 0, 2, 3).flatten(1, 2))
+        yg = ye.unflatten(1, (R, C)).permute(1, 0, 2, 3)
+    else:
+        yg = _expert_ffn(p, xg)
+    return hints.local(
+        lambda y, w, f, q: _combine(cfg, y, w, f, q, capacity), xt,
+        in_dims=(grp, tok, slot, slot), out_dims=tok)(yg, weights, fe, pie)
+
+
+def _dispatch(cfg, xt, idx, capacity: int):
+    """-> (xg [R, E, C, d], each slot's expert fe and position pie in it
+    [R, N * k])."""
     R, N, d = xt.shape
     E, k = cfg.num_experts, cfg.top_k
     dev = xt.device
@@ -104,16 +149,24 @@ def _dispatch_combine(p, cfg, xt, weights, idx, capacity: int):
             + dest).reshape(-1)
     xg = torch.zeros((R * E * (capacity + 1), d), dtype=xt.dtype, device=dev)
     xg.index_copy_(0, rows, xt.repeat_interleave(k, dim=1).reshape(-1, d))
-    xg = xg.reshape(R, E, capacity + 1, d)[:, :, :capacity]
-    yg = _expert_ffn(p, xg)
+    return xg.reshape(R, E, capacity + 1, d)[:, :, :capacity], fe, pie
+
+
+def _combine(cfg, yg, weights, fe, pie, capacity: int):
+    """Experts' outputs yg [R, E, C, d] back to the tokens [R, N, d]."""
+    R, E = yg.shape[:2]
+    d = yg.shape[-1]
+    k = cfg.top_k
+    N = fe.shape[1] // k
+    keep = pie < capacity
     # each slot's expert output (a dropped slot reads row C - 1 and is
     # weighed 0), weighed, then added to its token in slot order
     src = (fe * capacity + torch.clamp(pie, max=capacity - 1))[..., None]
     yflat = torch.gather(yg.reshape(R, E * capacity, d), 1,
                          src.expand(R, N * k, d))
-    wk = (weights.reshape(R, N * k) * keep).to(xt.dtype)
+    wk = (weights.reshape(R, N * k) * keep).to(yg.dtype)
     yflat = (yflat * wk[..., None]).reshape(R, N, k, d)
-    out = torch.zeros((R, N, d), dtype=xt.dtype, device=dev)
+    out = torch.zeros((R, N, d), dtype=yg.dtype, device=yg.device)
     for j in range(k):
         out = out + yflat[:, :, j]
     return out

@@ -33,6 +33,11 @@ output) over the DEC layers.  Layer ``l`` works on views of its entries
 and UPDATES THEM IN PLACE, where the reference threads a donated buffer
 through its scan.  ``forward`` returns the same cache object.
 
+Every entry point runs on DTensor parameters and caches too (the sharded
+path: ``distributed/sharding.py`` gives their placements,
+``distributed/hints.py`` the layouts pinned between blocks and the
+regions run on local shards).
+
 Training runs ``forward`` without a cache; where ``cfg.remat`` holds and
 grad is on, each layer runs under ``torch.utils.checkpoint`` (the
 reference's ``jax.checkpoint`` of each scan period).
@@ -44,6 +49,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import hints
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_lib
@@ -123,13 +129,24 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, btype: str):
     raise ValueError(btype)
 
 
+class _MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the ``meta`` device, which
+    torch has no generator for: the init helpers read its ``device`` and
+    draw nothing."""
+    device = torch.device("meta")
+
+
 def init_params(seed: int, cfg: ModelConfig, device="cuda"):
     """Random parameters drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device`` (the draws differ from the reference's, which
     come from ``jax.random``; parity tests convert the reference's
-    parameters instead of re-drawing)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    parameters instead of re-drawing).  On ``device="meta"`` the leaves
+    have their shapes and types and no data."""
+    if torch.device(device).type == "meta":
+        gen = _MetaGenerator()
+    else:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     d, V = cfg.d_model, cfg.vocab_size
     params = {
         "embed": dense_init(gen, (V, d), cfg.param_dtype, scale=1.0),
@@ -144,6 +161,14 @@ def init_params(seed: int, cfg: ModelConfig, device="cuda"):
                                          cfg.param_dtype)
     params["layers"] = [_init_block(gen, cfg, b) for b in layer_types(cfg)]
     return params
+
+
+def abstract_params(cfg: ModelConfig):
+    """Parameter shapes without data or allocation (for the sharding
+    rules and the dry-run): the tree of :func:`init_params` on the
+    ``meta`` device, at any size (arctic-480b's 480 B parameters
+    included).  ``launch.specs`` turns the leaves into fake tensors."""
+    return init_params(0, cfg, device="meta")
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +209,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
             (n_state, batch, cfg.ssm_nheads, cfg.ssm_headdim,
              cfg.ssm_state), dtype=torch.float32, device=device)
     return cache
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
+                   cross_len: int = 0):
+    """The tree of :func:`init_cache` on the ``meta`` device: shapes and
+    types, no data."""
+    return init_cache(cfg, batch, max_seq, dtype, device="meta",
+                      cross_len=cross_len)
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
@@ -227,18 +260,24 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
 # Blocks
 # ---------------------------------------------------------------------------
 
+#: a branch's output joins the residual stream laid out as the stream is
+#: (on a DTensor its partial sums are reduced; a plain tensor passes)
+_branch = hints.constrain_tokens
+
+
 def _apply_block(btype, bp, cfg, x, positions, cache, shared_attn,
                  enc_out=None, valid_len=None, block_tables=None,
                  rope_cs=None, write_dest=None):
     """Returns (x, aux loss or None); ``cache`` (this layer's views) is
     updated in place."""
+    x = hints.constrain_tokens(x)
     if btype == ENC:
         # bidirectional over the encoder's frames; no cache
         h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-        x = x + attn_lib.encoder_attention(bp["attn"], cfg, h, positions,
-                                           rope_cs)
+        x = x + _branch(attn_lib.encoder_attention(bp["attn"], cfg, h,
+                                                   positions, rope_cs))
         h = rms_norm(x, bp["ln2"], cfg.norm_eps)
-        return x + mlp(bp["mlp"], h), None
+        return x + _branch(mlp(bp["mlp"], h)), None
     if btype in (ATTN, ATTN_LOCAL):
         h = rms_norm(x, bp["ln1"], cfg.norm_eps)
         a, _ = attn_lib.self_attention(
@@ -246,9 +285,9 @@ def _apply_block(btype, bp, cfg, x, positions, cache, shared_attn,
             window=cfg.sliding_window if btype == ATTN_LOCAL else 0,
             valid_len=valid_len, block_tables=block_tables, rope_cs=rope_cs,
             write_dest=write_dest)
-        x = x + a
+        x = x + _branch(a)
         h = rms_norm(x, bp["ln2"], cfg.norm_eps)
-        return x + mlp(bp["mlp"], h), None
+        return x + _branch(mlp(bp["mlp"], h)), None
     if btype == MOE:
         # every row goes through the experts, a row the step masks out
         # too: it takes its place in the experts' capacity, as in the
@@ -256,12 +295,12 @@ def _apply_block(btype, bp, cfg, x, positions, cache, shared_attn,
         h = rms_norm(x, bp["ln1"], cfg.norm_eps)
         a, _ = attn_lib.self_attention(bp["attn"], cfg, h, positions, cache,
                                        valid_len=valid_len, rope_cs=rope_cs)
-        x = x + a
+        x = x + _branch(a)
         h = rms_norm(x, bp["ln2"], cfg.norm_eps)
         mo, aux = moe_lib.moe_ffn(bp["moe"], cfg, h)
         if cfg.dense_residual:
             mo = mo + mlp(bp["dense_mlp"], h)
-        return x + mo, aux
+        return x + _branch(mo), aux
     if btype in (MAMBA2, ZAMBA_ATTN):
         if btype == ZAMBA_ATTN:
             h = rms_norm(x, bp["ln_attn"], cfg.norm_eps)
@@ -270,16 +309,16 @@ def _apply_block(btype, bp, cfg, x, positions, cache, shared_attn,
             a, _ = attn_lib.self_attention(shared_attn, cfg, h, positions,
                                            kvc, valid_len=valid_len,
                                            rope_cs=rope_cs)
-            x = x + a
+            x = x + _branch(a)
         h = rms_norm(x, bp["ln1"], cfg.norm_eps)
         mcache = ({"conv": cache["conv"], "ssm": cache["ssm"]}
                   if cache is not None else None)
         mo, _ = m2.mamba2_block(bp["mixer"], cfg, h, mcache,
                                 valid_len=valid_len)
-        x = x + mo
+        x = x + _branch(mo)
         if cfg.d_ff > 0 and "mlp" in bp:
             h = rms_norm(x, bp["ln2"], cfg.norm_eps)
-            x = x + mlp(bp["mlp"], h)
+            x = x + _branch(mlp(bp["mlp"], h))
         return x, None
     if btype == DEC:
         # causal self-attention over the text (through the kernels where
@@ -291,21 +330,21 @@ def _apply_block(btype, bp, cfg, x, positions, cache, shared_attn,
                if cache is not None else None)
         a, _ = attn_lib.self_attention(bp["attn"], cfg, h, positions, kvc,
                                        valid_len=valid_len, rope_cs=rope_cs)
-        x = x + a
+        x = x + _branch(a)
         h = rms_norm(x, bp["ln_x"], cfg.norm_eps)
         if enc_out is not None:
             ckv = attn_lib.project_cross_kv(bp["xattn"], cfg, enc_out)
             if cache is not None:
-                cache["ck"].copy_(ckv["k"])
-                cache["cv"].copy_(ckv["v"])
+                cache["ck"].copy_(hints.split_like(ckv["k"], cache["ck"]))
+                cache["cv"].copy_(hints.split_like(ckv["v"], cache["cv"]))
         elif cache is not None:
             ckv = {"k": cache["ck"], "v": cache["cv"]}
         else:
             raise ValueError("a DEC layer needs audio_embeds or a cache "
                              "holding the cross-attention KV")
-        x = x + attn_lib.cross_attention(bp["xattn"], cfg, h, ckv)
+        x = x + _branch(attn_lib.cross_attention(bp["xattn"], cfg, h, ckv))
         h = rms_norm(x, bp["ln2"], cfg.norm_eps)
-        return x + mlp(bp["mlp"], h), None
+        return x + _branch(mlp(bp["mlp"], h)), None
     raise ValueError(btype)
 
 
@@ -340,13 +379,14 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
     of the MoE layers' load-balance losses (float32, 0 without MoE).
     """
     B = tokens.shape[0]
-    x = params["embed"][tokens]
+    x = hints.embed(params["embed"], tokens)
     if image_embeds is not None:
         img = image_embeds.to(x.dtype) @ params["projector"]
         x = torch.cat([img, x], dim=1)
     T = x.shape[1]
     if positions is None:
         positions = torch.arange(T, device=x.device)[None].expand(B, T)
+    positions = hints.rows_like(positions, x)
     # shared by every layer: RoPE tables and, for a paged pool, the pool
     # slot of every new token
     rope_cs = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
@@ -355,7 +395,8 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
     if audio_embeds is not None:
         enc = audio_embeds.to(x.dtype)
         S = enc.shape[1]
-        enc_pos = torch.arange(S, device=x.device)[None].expand(B, S)
+        enc_pos = hints.rows_like(
+            torch.arange(S, device=x.device)[None].expand(B, S), enc)
         enc_rope = rope_tables(enc_pos, cfg.head_dim, cfg.rope_theta)
     write_dest = None
     if block_tables is not None:
@@ -419,10 +460,12 @@ def train_loss(params, cfg: ModelConfig, batch):
         image_embeds=batch.get("image_embeds"),
         audio_embeds=batch.get("audio_embeds"))
     labels = batch["labels"]
-    if logits.shape[1] != labels.shape[1]:
-        logits = logits[:, -labels.shape[1]:]
-    loss = softmax_xent(logits[:, :-1], labels[:, 1:],
-                        batch.get("loss_mask"))
+    n = labels.shape[1]
+    # on a DTensor, cut on local shards: DTensor's slice backward builds a
+    # zero gradient of the whole vocabulary on every rank
+    logits = hints.on_shards(lambda t: t[:, -n:][:, :-1], logits,
+                             whole=(1,))
+    loss = softmax_xent(logits, labels[:, 1:], batch.get("loss_mask"))
     return loss + 0.01 * aux
 
 

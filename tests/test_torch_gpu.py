@@ -5,6 +5,7 @@ without jax:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1477,3 +1478,67 @@ def test_serve_refuses_without_a_card_unless_given_the_cpu(cuda):
             proc.kill()
             proc.communicate(timeout=120)
     assert proc.returncode == 0
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A one-rank NCCL process group (a FileStore in ``tmp_path``) and the
+    (1, 1) local mesh over it, torn down after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            device_id=torch.device("cuda:0"))
+    try:
+        yield make_local_mesh(model=1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_tp_local_sharded_forward_matches_plain(nccl_mesh):
+    """qwen2.5-3b at reduced width, float32: DTensor parameters and a
+    dense cache sharded by ``param_specs`` / ``cache_specs`` on the
+    one-rank mesh give the plain tensors' greedy tokens and logits (to the
+    kernels' float32 tolerance), and the sharded run reaches kernels 3
+    and 4 on local shards."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed import hints
+    from repro_torch.distributed import sharding as shd
+    cfg = reduced_config("qwen2.5-3b")
+    dev = torch.device("cuda")
+    B, T, steps, S = 2, 64, 4, 80
+    params = tf.init_params(0, cfg, device=dev)
+    prompt = torch.from_numpy(np.random.default_rng(4).integers(
+        1, cfg.vocab_size, size=(B, T))).to(dev)
+
+    def run(prm, cache, mesh=None):
+        whole = (lambda t: t.full_tensor()) if mesh is not None else \
+            (lambda t: t)
+        out = []
+        ctx = (hints.hints(("data",), "model", mesh=mesh)
+               if mesh is not None else contextlib.nullcontext())
+        with torch.no_grad(), implicit_replication(), ctx:
+            last, cache = tf.prefill(prm, cfg, prompt, cache,
+                                     torch.zeros(B, dtype=torch.long,
+                                                 device=dev))
+            out.append(whole(last))
+            for i in range(steps):
+                last, cache = tf.decode_step(
+                    prm, cfg, out[-1].argmax(-1)[:, None], cache,
+                    torch.full((B,), T + i, dtype=torch.long, device=dev))
+                out.append(whole(last))
+        return torch.stack(out)
+
+    plain = run(params, tf.init_cache(cfg, B, S, device=dev))
+    mesh = nccl_mesh
+    n0 = decode_attention.launches, chunked_prefill_attention.launches
+    sharded = run(shd.shard(mesh, shd.param_specs(cfg, 1), params),
+                  shd.shard(mesh, shd.cache_specs(cfg, mesh, B, S),
+                            tf.init_cache(cfg, B, S, device=dev)), mesh)
+    assert decode_attention.launches - n0[0] == steps * cfg.num_layers
+    assert chunked_prefill_attention.launches - n0[1] == cfg.num_layers
+    assert torch.equal(plain.argmax(-1), sharded.argmax(-1))
+    torch.testing.assert_close(sharded, plain, atol=TOL[torch.float32],
+                               rtol=0)

@@ -53,7 +53,14 @@ def test_port_has_files_to_check():
             "src/repro_torch/examples/quickstart.py",
             "src/repro_torch/examples/latency_shifting_demo.py",
             "src/repro_torch/examples/serve_goodput.py",
-            "src/repro_torch/examples/train_smollm.py"} <= rel
+            "src/repro_torch/examples/train_smollm.py",
+            "src/repro_torch/distributed/sharding.py",
+            "src/repro_torch/distributed/hints.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/launch/specs.py",
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/launch/hillclimb.py",
+            "src/repro_torch/analysis/roofline.py"} <= rel
 
 
 #: what a front-end tokenizer worker imports (the package, the frontend
