@@ -57,7 +57,13 @@ printing one JSON line; any failure raises and the process exits non-zero
                  its 448-token text context) and llava-next-34b's (56 / 8
                  / 128, a group of 7; bf16) attention shapes (all but
                  smollm-135m's and llava's in bf16 and float32; the bf16
-                 prefill also at the D-heavy instance's 256-token chunk)
+                 prefill also at the D-heavy instance's 256-token chunk);
+                 then both kernels' log-sum-exp forms at zamba2-7b's,
+                 qwen2.5-3b's and gemma3-1b's shapes: the output bit-equal
+                 to the serving form's, lse against the plain version's,
+                 two slot halves (kernel 4's second at a negative offset)
+                 combined against the whole call and the plain version;
+                 both forms timed
   kernels_ssd    the SSD-scan kernel against its plain version: one slot's
                  1024-token prefill at zamba2-7b's and mamba2-1.3b's widths
                  in float32, and zamba2-7b's served prefills in bf16 (887
@@ -147,7 +153,10 @@ printing one JSON line; any failure raises and the process exits non-zero
                  decode steps under hints against the same on plain
                  tensors: tokens equal, logits bit-equal (else
                  ``model``'s bf16 rule); kernels 3 and 4 launched on local
-                 shards; the sharded and the plain decode step's ms
+                 shards; the sharded and the plain decode step's ms; the
+                 same again with the cache split along its slot axis
+                 (``kv_mode="seq"``, path ``tp_local_seq``): the read of
+                 the rank's slots and the all-reduce combine
   dryrun         ``python -m repro_torch.launch.dryrun`` in a process of
                  its own, on the host (a fake process group of 256 / 512
                  ranks, fake tensors): qwen3-14b prefill_32k, qwen2.5-3b
@@ -170,16 +179,18 @@ an earlier run's ``serve_zamba2`` line, the scan time over its served
 prefills; ``--train-ssm`` only the build and ``train_ssm``;
 ``--tp-local`` only the build, ``tp_local`` and ``dryrun``.
 ``--ptxas [LOG]`` prints ptxas's registers and spill bytes
-of the scan's kernels, from this checkout's build or from LOG, the
-``nvcc.log`` of another checkout's (``kernels/build.py`` writes one
-beside its library).
+of the scan's and the attention kernels, from this checkout's build or
+from LOG, the ``nvcc.log`` of another checkout's (``kernels/build.py``
+writes one beside its library); ``--ptxas-compare LOG`` builds this
+checkout and lists the attention kernels' serving instantiations whose
+registers or spill bytes differ from LOG's.
 
 Then one line ``{"kernels": [...]}`` with, for every kernel of the port,
 its launches on the paths that run it (``live``, ``frontend``, ``tiers``
 and ``serve_llava`` for the paged kernels, ``serve_zamba2``,
 ``serve_gemma3``, ``serve_moe``, ``serve_mamba2``, ``model_whisper``,
-``model_llava``, ``serve_whisper`` and ``tp_local`` for the dense
-ones, and ``train_ssm`` for the scan and its backward;
+``model_llava``, ``serve_whisper``, ``tp_local`` and ``tp_local_seq``
+for the dense ones, and ``train_ssm`` for the scan and its backward;
 ``launches_by_path`` splits them), its error against the plain
 version and its time beside the plain version's, the card's bound and one
 library call; the card's name and power limit as ``nvidia-smi`` prints
@@ -1551,24 +1562,15 @@ def check_dense_graph(cfg, params, max_seq, lengths):
     return out
 
 
-def ptxas_d256():
-    """What ptxas reported (``-Xptxas -v``, the build's ``nvcc.log``) for
-    every head-dim-256 instantiation of the dense kernels: registers a
-    thread and spill bytes, by kernel, query and cache types, and the
-    FMA body's padded group (``gm``)."""
+def _ptxas_entries(log, name_re, describe):
+    """ptxas's report (``-Xptxas -v`` in a build's ``nvcc.log``) of every
+    entry function whose mangled name matches ``name_re``: ``describe(m)``
+    of the match, with its registers a thread and spill bytes."""
     out, cur = [], None
-    for line in (build.build_dir() / "nvcc.log").read_text().splitlines():
-        m = re.search(r"Compiling entry function '_ZN5paged\d+(\w+?_kernel)"
-                      r"I(\w+?)Li256E(?:Li(\d+)E)?", line)
+    for line in Path(log).read_text().splitlines():
+        m = re.search(r"Compiling entry function '" + name_re, line)
         if m:
-            types = re.findall(r"13__nv_bfloat16|S1_|f", m.group(2))
-            names = []
-            for t in types:
-                names.append(names[0] if t == "S1_" else
-                             "bf16" if t.startswith("13") else "f32")
-            cur = {"kernel": m.group(1), "types": names}
-            if m.group(3):
-                cur["gm"] = int(m.group(3))
+            cur = describe(m)
             out.append(cur)
             continue
         if cur is None:
@@ -1582,6 +1584,65 @@ def ptxas_d256():
             cur["registers"] = int(m.group(1))
             cur = None
     return out
+
+
+def ptxas_attention(log=None):
+    """Registers and spill bytes of every instantiation of the attention
+    kernels (``decode_kernel.cuh``'s split and combine passes,
+    ``prefill_kernel.cuh``'s FMA and tensor-core bodies; paged and dense),
+    from this checkout's build or ``log``, another build's: by kernel,
+    view, head dim ``D``, query and cache types, the FMA body's padded
+    group ``gm``, and ``lse``, whether it is the form that writes the
+    log-sum-exp (None where the checkout's kernels have no such form)."""
+    def describe(m):
+        args = m.group(2)
+        head = re.match(r"(13__nv_bfloat16|S1_|f|a)*", args).group(0)
+        names = []
+        for t in re.findall(r"13__nv_bfloat16|S1_|f|a", head):
+            names.append(names[0] if t == "S1_" else "bf16" if
+                         t.startswith("13") else "i8" if t == "a" else "f32")
+        ints = [int(x) for x in re.findall(r"Li(\d+)E", args)]
+        lse = re.search(r"Lb([01])E", args)
+        view = re.search(r"(Dense|Pool)View", args)
+        d = {"kernel": m.group(1), "view": view.group(1).lower()
+             if view else None, "types": names,
+             "D": ints[0] if ints and m.group(1) != "decode_combine_kernel"
+             else None,
+             "lse": lse.group(1) == "1" if lse else None}
+        if m.group(1) == "decode_split_kernel" and len(ints) > 1:
+            d["gm"] = ints[1]
+        return d
+    return _ptxas_entries(log or build.build_dir() / "nvcc.log",
+                          r"_ZN5paged\d+(\w+?_kernel)I(\w+)'", describe)
+
+
+def ptxas_d256():
+    """The head-dim-256 instantiations of :func:`ptxas_attention`."""
+    return [e for e in ptxas_attention() if e["D"] == 256]
+
+
+def ptxas_compare(log):
+    """The serving instantiations of the attention kernels (``lse`` not
+    true) of this build against those of the build whose ``nvcc.log`` is
+    ``log``, matched by kernel, view, D, types and group: every pair whose
+    registers or spill bytes differ, and how many pairs were compared."""
+    def key(e):
+        return (e["kernel"], e["view"], e["D"], tuple(e["types"]),
+                e.get("gm"))
+
+    def fields(e):
+        return (e.get("registers"), e.get("spill_stores"),
+                e.get("spill_loads"))
+    old = {key(e): e for e in ptxas_attention(log)}
+    differ, n = [], 0
+    for e in ptxas_attention():
+        if e["lse"] or key(e) not in old:
+            continue
+        n += 1
+        if fields(e) != fields(old[key(e)]):
+            differ.append({"this": e, "other": old[key(e)]})
+    return {"compared": n, "differ": differ,
+            "lse_forms": sum(bool(e["lse"]) for e in ptxas_attention())}
 
 
 def ptxas_scan(log=None):
@@ -1592,30 +1653,15 @@ def ptxas_scan(log=None):
     kernel, state width N, input type and, for the forward, whether the
     instantiation writes the tile states (None where the checkout's walk
     has no such parameter)."""
-    out, cur = [], None
-    log = log or build.build_dir() / "nvcc.log"
-    for line in Path(log).read_text().splitlines():
-        m = re.search(r"Compiling entry function '_ZN\d+ssd\w*?\d+"
-                      r"(ssd_\w+?_kernel)I(\w+)'", line)
-        if m:
-            n = re.search(r"Li(\d+)E", m.group(2))
-            st = re.search(r"Lb([01])E", m.group(2))
-            cur = {"kernel": m.group(1), "N": int(n.group(1)) if n else None,
-                   "type": "bf16" if "bfloat16" in m.group(2) else "f32",
-                   "states": st.group(1) == "1" if st else None}
-            out.append(cur)
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            cur["registers"] = int(m.group(1))
-            cur = None
-    return out
+    def describe(m):
+        n = re.search(r"Li(\d+)E", m.group(2))
+        st = re.search(r"Lb([01])E", m.group(2))
+        return {"kernel": m.group(1), "N": int(n.group(1)) if n else None,
+                "type": "bf16" if "bfloat16" in m.group(2) else "f32",
+                "states": st.group(1) == "1" if st else None}
+    return _ptxas_entries(log or build.build_dir() / "nvcc.log",
+                          r"_ZN\d+ssd\w*?\d+(ssd_\w+?_kernel)I(\w+)'",
+                          describe)
 
 
 def phase_graphs(name, check, *args):
@@ -1669,8 +1715,9 @@ def check_dense_decode(shape, lengths, S=DENSE_S):
     keys = sum(min(n, S) for n in lengths)
     nbytes = (2 * keys * hkv * d * k.element_size()
               + 2 * q.numel() * q.element_size() + 4 * B)
-    return {"kernel": "decode_attention", "shape": shape_name,
-            "dtype": str(dtype).split(".")[1], "B": B, "S": S,
+    return {"kernel": "decode_attention", "form": "serving",
+            "shape": shape_name, "dtype": str(dtype).split(".")[1], "B": B,
+            "S": S,
             "max_ctx": max(lengths), "max_abs_err": err, "tol": TOL[dtype],
             "plain_max_abs": ref_max,
             "ms": time_ms(run), "plain_ms": time_ms(plain),
@@ -1708,13 +1755,144 @@ def check_dense_prefill(shape, B, tq, prefix, S=DENSE_S):
     pairs = B * (tq * prefix + tq * (tq + 1) // 2)
     nbytes = (2 * B * (prefix + tq) * hkv * d * k.element_size()
               + 2 * q.numel() * q.element_size() + 4)
-    return {"kernel": "chunked_prefill_attention", "shape": shape_name,
-            "dtype": str(dtype).split(".")[1], "B": B, "Tq": tq,
+    return {"kernel": "chunked_prefill_attention", "form": "serving",
+            "shape": shape_name, "dtype": str(dtype).split(".")[1], "B": B,
+            "Tq": tq,
             "prefix": prefix, "S": S, "max_abs_err": err,
             "tol": TOL[dtype], "plain_max_abs": ref_max,
             "ms": time_ms(run), "plain_ms": time_ms(plain),
             "library_ms": time_ms(lib),
             **bound(nbytes, 4.0 * hq * d * pairs, dtype)}
+
+
+#: kernels 3 and 4's log-sum-exp (f32, a few units to ~10 at these
+#: shapes): float32 sums of up to 4096 exponentials in another order than
+#: the plain version's, exp2 of pre-scaled scores in the tensor-core bodies
+LSE_TOL = 1e-3
+
+
+def _halves(S):
+    """The two slot halves (first slot, slots) of an S-slot cache: the
+    pieces a slot-split cache's ranks hold on a model axis of 2."""
+    return [(0, S // 2), (S // 2, S // 2)]
+
+
+def _lse_err(a, b):
+    return (a - b).abs().max().item()
+
+
+def check_dense_decode_lse(shape, lengths, S=DENSE_S):
+    """Kernel 3's log-sum-exp form at a serving row: its output bit-equal
+    to the serving form's, its lse against the plain version's, and the
+    two slot halves' partials (each at its local lengths: what a rank of
+    a slot-split cache runs) combined (``combine_stacked``) against the
+    whole kernel call and the plain version; both forms timed."""
+    shape_name, hq, hkv, d, dtype = shape
+    B = len(lengths)
+    k, v = make_dense_kv(11, B, hkv, d, dtype, S)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(12)
+    q = torch.randn((B, hq, d), device=DEV, generator=g).to(dtype)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    serve = lambda: dec_ops.decode_attention(q, k, v, ln)
+    lse_form = lambda: dec_ops.decode_attention(q, k, v, ln, return_lse=True)
+    out, lse = lse_form()
+    whole = serve()
+    parts = [dec_ops.decode_attention(
+        q, k[:, off:off + n], v[:, off:off + n],
+        (ln.long() - off).clamp(0, n).to(torch.int32), return_lse=True)
+        for off, n in _halves(S)]
+    comb = attn_lib.combine_stacked(torch.stack([p[0] for p in parts]),
+                                    torch.stack([p[1] for p in parts]))
+    torch.cuda.synchronize()
+    ref, ref_lse = dec_ops.decode_attention_ref(q, k, v, ln, return_lse=True)
+    res = {"kernel": "decode_attention", "form": "lse", "shape": shape_name,
+           "dtype": str(dtype).split(".")[1], "B": B, "S": S,
+           "max_ctx": max(lengths),
+           "out_bit_equal_serving": torch.equal(out, whole),
+           "lse_err": _lse_err(lse, ref_lse), "lse_tol": LSE_TOL,
+           "halves_vs_kernel": (comb.float() - whole.float()).abs().max()
+           .item(),
+           "halves_vs_plain": (comb.float() - ref.float()).abs().max().item(),
+           "tol": TOL[dtype]}
+    del ref, ref_lse
+    assert res["out_bit_equal_serving"], res
+    assert res["lse_err"] <= LSE_TOL, res
+    assert max(res["halves_vs_kernel"], res["halves_vs_plain"]) \
+        <= TOL[dtype], res
+    res["ms"] = time_ms(serve)
+    res["lse_ms"] = time_ms(lse_form)
+    return res
+
+
+def check_dense_prefill_lse(shape, B, tq, prefix, S=DENSE_S):
+    """Kernel 4's log-sum-exp form, as :func:`check_dense_decode_lse`: the
+    halves take the chunk's offset less the half's first slot (past the
+    first half's end, or negative on the second half)."""
+    shape_name, hq, hkv, d, dtype = shape
+    k, v = make_dense_kv(13, B, hkv, d, dtype, S)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(14)
+    q = torch.randn((B, tq, hq, d), device=DEV, generator=g).to(dtype)
+    pre = torch.tensor(prefix, dtype=torch.int32, device=DEV)
+    serve = lambda: pf_ops.chunked_prefill_attention(q, k, v, pre)
+    lse_form = lambda: pf_ops.chunked_prefill_attention(q, k, v, pre,
+                                                        return_lse=True)
+    out, lse = lse_form()
+    whole = serve()
+    parts = [pf_ops.chunked_prefill_attention(
+        q, k[:, off:off + n], v[:, off:off + n], prefix - off,
+        return_lse=True) for off, n in _halves(S)]
+    comb = attn_lib.combine_stacked(torch.stack([p[0] for p in parts]),
+                                    torch.stack([p[1] for p in parts]))
+    torch.cuda.synchronize()
+    ref, ref_lse = pf_ops.chunked_prefill_attention_ref(q, k, v, prefix,
+                                                        return_lse=True)
+    res = {"kernel": "chunked_prefill_attention", "form": "lse",
+           "shape": shape_name, "dtype": str(dtype).split(".")[1], "B": B,
+           "Tq": tq, "prefix": prefix, "S": S,
+           "halves_prefix": [prefix - off for off, _ in _halves(S)],
+           "out_bit_equal_serving": torch.equal(out, whole),
+           "lse_err": _lse_err(lse, ref_lse), "lse_tol": LSE_TOL,
+           "halves_vs_kernel": (comb.float() - whole.float()).abs().max()
+           .item(),
+           "halves_vs_plain": (comb.float() - ref.float()).abs().max().item(),
+           "tol": TOL[dtype]}
+    del ref, ref_lse
+    assert res["out_bit_equal_serving"], res
+    assert res["lse_err"] <= LSE_TOL, res
+    assert max(res["halves_vs_kernel"], res["halves_vs_plain"]) \
+        <= TOL[dtype], res
+    res["ms"] = time_ms(serve)
+    res["lse_ms"] = time_ms(lse_form)
+    return res
+
+
+#: the log-sum-exp forms' shapes: zamba2-7b's (the main path's, both
+#: types), qwen2.5-3b's 16 / 2 / 128 (``tp_local``'s) on the same
+#: 2048-slot cache, gemma3-1b's head dim 256 on its 4096-slot one
+LSE_SHAPES = [(ZAMBA, 32, 32, 112, torch.bfloat16, DENSE_S),
+              (ZAMBA, 32, 32, 112, torch.float32, DENSE_S),
+              (MODEL, 16, 2, 128, torch.bfloat16, DENSE_S),
+              (GEMMA, 4, 1, 256, torch.bfloat16, FAMILY_S),
+              (GEMMA, 4, 1, 256, torch.float32, FAMILY_S)]
+
+
+def phase_kernels_dense_lse():
+    """Kernels 3 and 4's log-sum-exp forms at LSE_SHAPES: decode at the
+    serving rows (8 rows to S keys), the prefill row of record (Tq 1024
+    at prefix 1024) and a chunk whose second half's offset is negative
+    with keys live in it (Tq 1024 at S / 2 - 512)."""
+    cases = []
+    for name, hq, hkv, d, dtype, S in LSE_SHAPES:
+        shape = (name, hq, hkv, d, dtype)
+        lengths = ([2048, 1, 700, 1536, 33, 1024, 2000, 129] if S == DENSE_S
+                   else [4096, 1, 1400, 3072, 33, 2048, 4000, 129])
+        cases.append(check_dense_decode_lse(shape, lengths, S))
+        cases.append(check_dense_prefill_lse(shape, 1, 1024, 1024, S))
+        cases.append(check_dense_prefill_lse(shape, 1, 1024, S // 2 - 512,
+                                             S))
+    return cases
 
 
 def ssd_inputs(h, p, n, t, dtype, seed=15, b=1):
@@ -1964,6 +2142,7 @@ def phase_kernels_dense():
     shape = (LLAVA, 56, 8, 128, torch.bfloat16)
     cases.append(check_dense_decode(shape, long_lengths, LLAVA_S))
     cases.append(check_dense_prefill(shape, 1, 1024, 1024, LLAVA_S))
+    cases += phase_kernels_dense_lse()
     emit("kernels_dense", cases=cases)
     cases += phase_kernels_ssd()
     torch.cuda.empty_cache()
@@ -3113,11 +3292,11 @@ KERNEL_META = {
     "decode_attention": (
         "src/repro_torch/kernels/csrc/decode.cu",
         "src/repro/kernels/decode_attention/decode_attn.py:74",
-        dict(shape=ZAMBA, dtype="bfloat16")),
+        dict(shape=ZAMBA, dtype="bfloat16", form="serving")),
     "chunked_prefill_attention": (
         "src/repro_torch/kernels/csrc/chunked_prefill.cu",
         "src/repro/kernels/chunked_prefill_attention/chunked_attn.py:89",
-        dict(shape=ZAMBA, dtype="bfloat16", Tq=1024)),
+        dict(shape=ZAMBA, dtype="bfloat16", Tq=1024, form="serving")),
     "ssd_scan": (
         "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan/ssd_kernel.py:85",
@@ -3189,7 +3368,10 @@ def phase_tp_local():
     (DTensors), a prefill and greedy decode steps under hints, against
     the same calls on plain tensors.  The cache writes and kernels 3 and 4
     run on local shards (``local_map``); the sharded run must launch both.
-    Returns its launches."""
+    A second sharded run takes ``kv_mode="seq"``: the cache split along
+    its slot axis, read where it lies (kernels 3 and 4's log-sum-exp form
+    on the rank's slots, the partials combined by all-reduce over the
+    one-rank group).  Returns the two runs' launches by path."""
     import torch.distributed as dist
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_local_mesh
@@ -3210,43 +3392,55 @@ def phase_tp_local():
         plain = _tp_run(cfg, params, tf.init_cache(cfg, TP_ROWS, S,
                                                    device=DEV), prompt)
         dparams = shd.shard(mesh, shd.param_specs(cfg, 1), params)
-        dcache = shd.shard(mesh, shd.cache_specs(cfg, mesh, TP_ROWS, S),
-                           tf.init_cache(cfg, TP_ROWS, S, device=DEV))
         rows = lambda t: shd.shard(mesh, shd.P(("data",)), t)
-        reset_counts(DENSE_KERNELS)
-        sharded = _tp_run(cfg, dparams, dcache, rows(prompt), mesh)
-        launches = launch_counts(("decode_attention",
-                                  "chunked_prefill_attention"))
-        assert all(n > 0 for n in launches.values()), launches
-        tokens_equal = torch.equal(plain[0], sharded[0])
-        bit_equal = torch.equal(plain[1], sharded[1])
-        rule = None
-        if not bit_equal:
+        ref = []
+
+        def bf16_rule(sharded):
             # phase_model's bf16 rule: no further from the float32 plain
             # result than the bf16 plain run is (x 1.5 + slack)
-            ref = _tp_run(cfg, _float_tree(params),
-                          tf.init_cache(cfg, TP_ROWS, S, dtype=torch.float32,
-                                        device=DEV), prompt)
+            if not ref:
+                ref.append(_tp_run(cfg, _float_tree(params), tf.init_cache(
+                    cfg, TP_ROWS, S, dtype=torch.float32, device=DEV),
+                    prompt))
             err = lambda a: max(
-                ((a[1][i] - ref[1][i]).abs().max()
-                 / ref[1][i].abs().max().clamp_min(1.0)).item()
+                ((a[1][i] - ref[0][1][i]).abs().max()
+                 / ref[0][1][i].abs().max().clamp_min(1.0)).item()
                 for i in range(TP_STEPS + 1))
             rule = {"sharded_vs_f32": err(sharded), "plain_vs_f32": err(plain)}
             assert rule["sharded_vs_f32"] <= 1.5 * rule["plain_vs_f32"] \
                 + MODEL_TOL_BF16_SLACK, rule
-        assert tokens_equal, (plain[0], sharded[0])
+            return rule
+
+        runs, by_path = {}, {}
+        for path, kv_mode in (("tp_local", "auto"), ("tp_local_seq", "seq")):
+            dcache = shd.shard(mesh, shd.cache_specs(cfg, mesh, TP_ROWS, S,
+                                                     kv_mode=kv_mode),
+                               tf.init_cache(cfg, TP_ROWS, S, device=DEV))
+            reset_counts(DENSE_KERNELS)
+            sharded = _tp_run(cfg, dparams, dcache, rows(prompt), mesh)
+            launches = launch_counts(("decode_attention",
+                                      "chunked_prefill_attention"))
+            assert all(n > 0 for n in launches.values()), (path, launches)
+            bit_equal = torch.equal(plain[1], sharded[1])
+            runs[kv_mode] = dict(
+                cache_placements=str(dcache["k"].placements),
+                tokens_equal=torch.equal(plain[0], sharded[0]),
+                logits_bit_equal=bit_equal,
+                bf16_rule=None if bit_equal else bf16_rule(sharded),
+                launches=launches,
+                decode_step_ms_sharded=sum(sharded[2]) / TP_STEPS,
+                decode_step_ms_sharded_all=sharded[2])
+            assert runs[kv_mode]["tokens_equal"], (path, plain[0], sharded[0])
+            by_path[path] = launches
+            del dcache
+        auto = runs.pop("auto")
         emit("tp_local", model=cfg.name, mesh=list(mesh.shape),
              backend=dist.get_backend(), rows=TP_ROWS, prompt=TP_PROMPT,
-             decode_steps=TP_STEPS,
-             cache_placements=str(dcache["k"].placements),
-             tokens_equal=tokens_equal, logits_bit_equal=bit_equal,
-             bf16_rule=rule, launches=launches,
-             decode_step_ms_sharded=sum(sharded[2]) / TP_STEPS,
+             decode_steps=TP_STEPS, **auto,
              decode_step_ms_plain=sum(plain[2]) / TP_STEPS,
-             decode_step_ms_sharded_all=sharded[2],
-             decode_step_ms_plain_all=plain[2])
-        del params, dparams, dcache
-        return launches
+             decode_step_ms_plain_all=plain[2], seq=runs["seq"])
+        del params, dparams
+        return by_path
     finally:
         dist.destroy_process_group()
         gc.collect()
@@ -3372,6 +3566,13 @@ def main(argv):
             build.load_library()
         emit("ptxas_scan", log=argv[1] if len(argv) > 1 else "this build",
              kernels=ptxas_scan(*argv[1:2]))
+        emit("ptxas_attention",
+             log=argv[1] if len(argv) > 1 else "this build",
+             kernels=ptxas_attention(*argv[1:2]))
+        return 0
+    if argv[:1] == ["--ptxas-compare"]:
+        build.load_library()
+        emit("ptxas_compare", log=argv[1], **ptxas_compare(argv[1]))
         return 0
 
     t0 = time.perf_counter()
@@ -3476,7 +3677,7 @@ def main(argv):
     phase_train()
     by_path["train_ssm"] = phase_train_ssm()
     phase_train_grad()
-    by_path["tp_local"] = phase_tp_local()
+    by_path.update(phase_tp_local())
     phase_dryrun()
     # last, with nothing else on the card: llava-next-34b's weights fill
     # most of it

@@ -32,8 +32,9 @@ from repro_torch.core.hw import H100
 #: cards one NVLink host joins all to all (an HGX H100 board)
 NVLINK_HOST_CARDS = 8
 
-#: ops of ``_c10d_functional`` that complete a collective (not counted)
-_NOT_COLLECTIVES = {"wait_tensor"}
+#: ops of ``_c10d_functional`` that complete or wrap a collective's result
+#: (not counted)
+_NOT_COLLECTIVES = {"wait_tensor", "_wrap_tensor_autograd"}
 
 
 def _out_bytes(out) -> int:
@@ -67,19 +68,34 @@ class LocalOpMode(TorchDispatchMode):
 _PRIM_DEVICE = torch.ops.prim.device.default
 
 
+def _model_site() -> str:
+    """``file:line function`` of the innermost frame of the port's model
+    or training code on the stack (the site a collective serves), else
+    ``other``."""
+    import traceback
+    for fr in reversed(traceback.extract_stack()):
+        if "/repro_torch/models/" in fr.filename \
+                or "/repro_torch/training/" in fr.filename:
+            return f"{fr.filename.rsplit('/', 1)[-1]}:{fr.lineno} {fr.name}"
+    return "other"
+
+
 class CollectiveCounter(LocalOpMode):
     """Output bytes of every collective, counted once where it is issued
     and not again at its ``wait_tensor``: the reference's rule (the
     output shape's bytes, ``-done`` not counted) on torch's ops.
     ``counts`` and ``bytes_by_op`` hold the same by op name
     (``all_gather_into_tensor``, ``all_reduce``, ``reduce_scatter_tensor``,
-    ``all_to_all_single``, ...)."""
+    ``all_to_all_single``, ...).  With ``sites``, ``bytes_by_site`` holds
+    them by op and the model code's line that issued them
+    (:func:`_model_site`; a stack walk an op, for a diagnosis only)."""
 
-    def __init__(self):
+    def __init__(self, sites: bool = False):
         super().__init__()
         self.total_bytes = 0
         self.counts = collections.Counter()
         self.bytes_by_op = collections.Counter()
+        self.bytes_by_site = collections.Counter() if sites else None
 
     def on_op(self, func, args, kwargs, out):
         ns = func.namespace
@@ -92,6 +108,8 @@ class CollectiveCounter(LocalOpMode):
         self.total_bytes += n
         self.counts[name] += 1
         self.bytes_by_op[name] += n
+        if self.bytes_by_site is not None:
+            self.bytes_by_site[f"{name} {_model_site()}"] += n
 
 
 def model_flops_per_device(arch: str, shape: str, n_devices: int) -> float:

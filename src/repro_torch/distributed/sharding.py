@@ -193,8 +193,9 @@ def cache_specs(cfg: ModelConfig, mesh, batch: int, max_seq: int,
 
     kv_mode:
       'auto'  — KV heads shard over 'model' when divisible, else the
-                sequence axis (the port gathers an S-sharded cache before
-                each read: an all-gather a layer).
+                sequence axis (each rank reads its own slots; the partial
+                softmaxes are combined by all-reduce, as the reference's
+                compiled program does).
       'batch' — KV shards over the data axis only, replicated across
                 'model': every cache write is device-local, at the cost
                 of model_size x more KV memory per device.

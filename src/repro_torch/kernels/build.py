@@ -130,6 +130,7 @@ def _bind(lib: ctypes.CDLL):
     lib.dense_decode_attention.argtypes = [
         p, p, p, p, p,                     # q k v lengths out
         p, p, p,                           # workspace: acc m l
+        p,                                 # lse (null: serving form)
         i, i, i, i, i,                     # B Hq Hkv D S
         i, i,                              # keys_per_split splits
         i64, i64, i64,                     # strides (row, position, head)
@@ -137,6 +138,7 @@ def _bind(lib: ctypes.CDLL):
     lib.dense_chunked_prefill_attention.restype = i
     lib.dense_chunked_prefill_attention.argtypes = [
         p, p, p, p, p,                     # q k v prefix out
+        p,                                 # lse (null: serving form)
         i, i, i, i, i, i,                  # B Tq Hq Hkv D S
         i64, i64, i64,
         i, i, p]

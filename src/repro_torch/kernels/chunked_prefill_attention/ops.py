@@ -29,8 +29,9 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_args import (MIN_DENOMINATOR, NEG_INF,
-                                            check_launch, dense_args,
-                                            gather_kv, masked_softmax,
+                                            check_launch, check_lse_types,
+                                            dense_args, gather_kv,
+                                            masked_lse, masked_softmax,
                                             pool_args, ptr)
 
 #: the tensor-core body's tiling: query rows a warp owns (the MMA's M) and
@@ -44,16 +45,22 @@ TILE_KEYS = 64
 P_ROUND = "pair"
 
 
-def _attend(q, kd, vd, mask):
+def _attend(q, kd, vd, mask, return_lse: bool = False):
     """q [B, Tq, Hq, D] over float32 keys/values [B, S, Hkv, D] with a
-    mask [B, Tq, S]: masked softmax in float32, result in q's type."""
+    mask [B, Tq, S]: masked softmax in float32, result in q's type; with
+    ``return_lse`` also the float32 log-sum-exp [B, Tq, Hq] of the masked
+    scores (-1e30 for a query row with no key)."""
     B, Tq, Hq, D = q.shape
     Hkv = kd.shape[2]
     qg = q.float().reshape(B, Tq, Hkv, Hq // Hkv, D)
     s = torch.einsum("btkgd,bskd->bkgts", qg, kd) * (D ** -0.5)
-    p = masked_softmax(s, mask[:, None, None, :, :])
+    m = mask[:, None, None, :, :]
+    p = masked_softmax(s, m)
     o = torch.einsum("bkgts,bskd->btkgd", p, vd)
-    return o.reshape(B, Tq, Hq, D).to(q.dtype)
+    o = o.reshape(B, Tq, Hq, D).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, masked_lse(s, m).permute(0, 3, 1, 2).reshape(B, Tq, Hq)
 
 
 def _chunk_mask(S: int, Tq: int, start, end, device):
@@ -218,44 +225,60 @@ def _prefix_tensor(prefix, device):
     return torch.tensor([int(prefix)], dtype=torch.int32, device=device)
 
 
-def chunked_prefill_attention_ref(q, k, v, prefix):
+def chunked_prefill_attention_ref(q, k, v, prefix, *,
+                                  return_lse: bool = False):
     """Plain PyTorch version: masked softmax in float32 with the mask of
     ``chunked_attn.py`` (``kpos <= prefix + t`` and ``kpos < prefix +
     Tq``).  Same arguments and result as :func:`chunked_prefill_attention`."""
     B, Tq = q.shape[:2]
     start = _prefix_tensor(prefix, q.device).to(torch.int64).expand(B)
     mask = _chunk_mask(k.shape[1], Tq, start, start + Tq, q.device)
-    return _attend(q, k.float(), v.float(), mask)
+    return _attend(q, k.float(), v.float(), mask, return_lse)
 
 
-def chunked_prefill_attention(q, k, v, prefix):
+def chunked_prefill_attention(q, k, v, prefix, *, return_lse: bool = False):
     """Dense chunked-prefill attention: every row of q [B, Tq, Hq, D] is a
     chunk of Tq tokens at absolute offset ``prefix`` (an int, or a
     one-element int tensor on q's device), attending over its row of k, v
     [B, S, Hkv, D] (read in place; slots < prefix + Tq valid, causal
     within the chunk).  Head dims 64, 112, 128 and 256, up to 16 query
-    heads a KV head, float32 or bfloat16.  Returns [B, Tq, Hq, D] in q's type.
+    heads a KV head, float32 or bfloat16.  Returns [B, Tq, Hq, D] in q's
+    type.
+
+    ``prefix`` may be negative or lie past ``S - Tq``: on a piece of a
+    cache split along its slot axis (slots ``off .. off + S``) the chunk
+    at ``p`` is the chunk at ``p - off``; a query row with no key there
+    comes out zero.  With ``return_lse`` (q and the cache in one type)
+    returns ``(out, lse)``, lse the float32 [B, Tq, Hq] log-sum-exp of
+    each query row's scores over its live keys, -1e30 for a row with
+    none, by which the pieces' outputs combine.
 
     A CUDA tensor launches the kernel (or raises); only a CPU tensor goes
     to the plain version."""
     if q.device.type == "cpu":
-        return chunked_prefill_attention_ref(q, k, v, prefix)
+        return chunked_prefill_attention_ref(q, k, v, prefix,
+                                             return_lse=return_lse)
     if q.device.type != "cuda":
         raise RuntimeError(f"unsupported device {q.device}")
     q = q.contiguous()
     B, Tq, Hq, D = q.shape
     S, s_b, s_tok, s_head, q_code, kv_code = dense_args(q, k, v)
     pre = _prefix_tensor(prefix, q.device)
+    lse = None
+    if return_lse:
+        check_lse_types(q, k)
+        lse = torch.empty((B, Tq, Hq), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     lib = build.load_library()
     with torch.cuda.device(q.device):
         err = lib.dense_chunked_prefill_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pre.data_ptr(),
-            out.data_ptr(), B, Tq, Hq, k.shape[2], D, S, s_b, s_tok, s_head,
-            q_code, kv_code, torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), ptr(lse), B, Tq, Hq, k.shape[2], D, S, s_b,
+            s_tok, s_head, q_code, kv_code,
+            torch.cuda.current_stream().cuda_stream)
     check_launch(err, "chunked_prefill_attention")
     chunked_prefill_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 #: kernel launches made by this wrapper (the plain version never counts)

@@ -53,6 +53,12 @@
 //    the row's live splits (ceil(length / keys_per_split) of them) by
 //    exp(m_s - m_max) and divides by the summed l.  A launch with one split
 //    writes the output from pass 1 and has no pass 2.
+//  - the log-sum-exp form (kLse, an instantiation of its own, so that the
+//    serving form keeps its registers) also writes lse [B, Hq] in f32:
+//    m + log(l) over the row's live keys, -1e30 for a row with none.  Pass
+//    2 writes it, or pass 1 when there is one split.  A caller that holds
+//    a row's keys cut into pieces (a cache split along its slot axis over
+//    several cards) combines the pieces' outputs by their lse.
 #pragma once
 
 #include <math.h>
@@ -531,13 +537,14 @@ struct DecodeArgs {
   float* ws_acc;           // [B, Hq, splits, D]   (splits > 1 only)
   float* ws_m;             // [B, Hq, splits]
   float* ws_l;             // [B, Hq, splits]
+  float* lse;              // [B, Hq], or null (the serving form)
   int B, Hq, Hkv;
   int keys_per_split;      // a multiple of kWarpKeys
   int splits;              // ceil(view.span() / keys_per_split)
 };
 
 // Pass 1: grid (splits, Hkv, B), DecodeTiling::kThreads threads.
-template <typename QT, typename KT, int D, int GM, typename View>
+template <typename QT, typename KT, int D, int GM, bool kLse, typename View>
 __global__ void __launch_bounds__(DecodeTiling<QT, KT, D, GM>::kThreads)
     decode_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
                         const KT* __restrict__ v,
@@ -545,8 +552,8 @@ __global__ void __launch_bounds__(DecodeTiling<QT, KT, D, GM>::kThreads)
                         const float* __restrict__ v_scale,
                         const int* __restrict__ lengths, QT* __restrict__ out,
                         float* __restrict__ ws_acc, float* __restrict__ ws_m,
-                        float* __restrict__ ws_l, View view, int Hq, int G,
-                        int kps, float sm_scale) {
+                        float* __restrict__ ws_l, float* __restrict__ lse,
+                        View view, int Hq, int G, int kps, float sm_scale) {
   using T = DecodeTiling<QT, KT, D, GM>;
   using L = DecodeLayout<KT, D>;
   constexpr int NW = T::kWarps;
@@ -679,6 +686,9 @@ __global__ void __launch_bounds__(DecodeTiling<QT, KT, D, GM>::kThreads)
     const long row = q_row + g;
     if (splits == 1) {
       store1(out + row * D + d, a / fmaxf(l, kMinDenominator));
+      if constexpr (kLse) {
+        if (d == 0) lse[row] = l > 0.f ? m + logf(l) : kNegInf;
+      }
     } else {
       ws_acc[(row * splits + split) * D + d] = a;
       if (d == 0) {
@@ -691,11 +701,12 @@ __global__ void __launch_bounds__(DecodeTiling<QT, KT, D, GM>::kThreads)
 
 // Pass 2: grid (Hq, B), kCombineThreads threads; thread d the output
 // columns d, d + kCombineThreads, ...
-template <typename QT>
+template <typename QT, bool kLse>
 __global__ void __launch_bounds__(kCombineThreads) decode_combine_kernel(
     const float* __restrict__ ws_acc, const float* __restrict__ ws_m,
     const float* __restrict__ ws_l, const int* __restrict__ lengths,
-    QT* __restrict__ out, int Hq, int D, int splits, int kps, int span) {
+    QT* __restrict__ out, float* __restrict__ lse, int Hq, int D, int splits,
+    int kps, int span) {
   const int b = blockIdx.y;
   const long row = static_cast<long>(b) * Hq + blockIdx.x;
   int length = lengths[b];
@@ -714,14 +725,17 @@ __global__ void __launch_bounds__(kCombineThreads) decode_combine_kernel(
       a += w * ws_acc[(row * splits + s) * D + d];
     }
     store1(out + row * D + d, a / fmaxf(den, kMinDenominator));
+    if constexpr (kLse) {
+      if (d == 0) lse[row] = den > 0.f ? m_max + logf(den) : kNegInf;
+    }
   }
 }
 
-template <typename QT, typename KT, int D, int GM, typename View>
+template <typename QT, typename KT, int D, int GM, bool kLse, typename View>
 int launch_decode_group(const DecodeArgs& a, const View& view,
                         cudaStream_t stream) {
   using T = DecodeTiling<QT, KT, D, GM>;
-  auto kernel = decode_split_kernel<QT, KT, D, GM, View>;
+  auto kernel = decode_split_kernel<QT, KT, D, GM, kLse, View>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -729,30 +743,32 @@ int launch_decode_group(const DecodeArgs& a, const View& view,
   kernel<<<grid, T::kThreads, T::kSmemBytes, stream>>>(
       static_cast<const QT*>(a.q), static_cast<const KT*>(a.k),
       static_cast<const KT*>(a.v), a.k_scale, a.v_scale, a.lengths,
-      static_cast<QT*>(a.out), a.ws_acc, a.ws_m, a.ws_l, view, a.Hq,
+      static_cast<QT*>(a.out), a.ws_acc, a.ws_m, a.ws_l, a.lse, view, a.Hq,
       a.Hq / a.Hkv, a.keys_per_split,
       static_cast<float>(1.0 / sqrt(static_cast<double>(D))));
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
-  decode_combine_kernel<QT><<<dim3(a.Hq, a.B), kCombineThreads, 0, stream>>>(
-      a.ws_acc, a.ws_m, a.ws_l, a.lengths, static_cast<QT*>(a.out), a.Hq, D,
-      a.splits, a.keys_per_split, view.span());
+  decode_combine_kernel<QT, kLse>
+      <<<dim3(a.Hq, a.B), kCombineThreads, 0, stream>>>(
+          a.ws_acc, a.ws_m, a.ws_l, a.lengths, static_cast<QT*>(a.out), a.lse,
+          a.Hq, D, a.splits, a.keys_per_split, view.span());
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launch both passes on `stream`; returns the CUDA error of the launches
-// (0 = launched).
-template <typename QT, typename KT, int D, typename View>
+// (0 = launched).  kLse: the form that writes a.lse.
+template <typename QT, typename KT, int D, bool kLse = false, typename View>
 int launch_decode(const DecodeArgs& a, const View& view,
                   cudaStream_t stream) {
   if constexpr (uses_tensor_cores<QT, KT>()) {
-    return launch_decode_group<QT, KT, D, 16>(a, view, stream);
+    return launch_decode_group<QT, KT, D, 16, kLse>(a, view, stream);
   } else {
     switch (pad_group(a.Hq / a.Hkv)) {
-      case 1: return launch_decode_group<QT, KT, D, 1>(a, view, stream);
-      case 4: return launch_decode_group<QT, KT, D, 4>(a, view, stream);
-      case 8: return launch_decode_group<QT, KT, D, 8>(a, view, stream);
-      default: return launch_decode_group<QT, KT, D, 16>(a, view, stream);
+      case 1: return launch_decode_group<QT, KT, D, 1, kLse>(a, view, stream);
+      case 4: return launch_decode_group<QT, KT, D, 4, kLse>(a, view, stream);
+      case 8: return launch_decode_group<QT, KT, D, 8, kLse>(a, view, stream);
+      default:
+        return launch_decode_group<QT, KT, D, 16, kLse>(a, view, stream);
     }
   }
 }

@@ -57,7 +57,8 @@ extern "C" int paged_decode_attention(
   const PoolView pv{tables, NB, block_size, n_blk, kv_stride_tok,
                     kv_stride_head, sc_stride_tok};
   const DecodeArgs a{q, k_pool, v_pool, k_scale, v_scale, lengths, out,
-                     ws_acc, ws_m, ws_l, B, Hq, Hkv, keys_per_split, splits};
+                     ws_acc, ws_m, ws_l, nullptr, B, Hq, Hkv,
+                     keys_per_split, splits};
   // the pages of one split must fit the kernel's table of them
   if (check_split_args(a, pv.span()) != 0 ||
       (keys_per_split + block_size - 1) / block_size + 1 > kMaxSplitPages)

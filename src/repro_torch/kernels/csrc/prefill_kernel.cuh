@@ -5,7 +5,13 @@
 //
 // Row b's chunk starts at absolute position start[b * start_stride] and
 // holds valid[b] real tokens (Tq when `valid` is null).  Query token t sees
-// key kpos iff kpos <= start + t and kpos < start + valid.
+// key kpos iff kpos <= start + t and kpos < start + valid.  `start` may be
+// negative or lie past the cache's end: the dense kernel run on one piece
+// of a cache split along its slot axis (slots off .. off + S_r) takes the
+// chunk's offset less off.  A query row with no live key comes out zero.
+// The log-sum-exp form (kLse, an instantiation of its own, so that the
+// serving form keeps its registers) also writes lse [B, Tq, Hq] in f32:
+// m + log(l) over the row's live keys, -1e30 for a row with none.
 //
 // What differs from the Pallas kernels.  Their grid (B, Hkv, q block, KV
 // block) has a sequential innermost KV axis with m / l / acc carried in
@@ -73,13 +79,14 @@ constexpr size_t prefill_fma_smem_bytes() {
                           kPrefillRows * (kPrefillTile + 4));
 }
 
-template <typename QT, typename KT, int D, typename View>
+template <typename QT, typename KT, int D, bool kLse, typename View>
 __global__ void __launch_bounds__(kPrefillThreads) prefill_fma_kernel(
     const QT* __restrict__ q, const KT* __restrict__ k,
     const KT* __restrict__ v, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int* __restrict__ start,
     int start_stride, const int* __restrict__ valid, QT* __restrict__ out,
-    View view, int Tq, int Hq, int G, int TQ, float sm_scale) {
+    float* __restrict__ lse, View view, int Tq, int Hq, int G, int TQ,
+    float sm_scale) {
   constexpr int NT = kPrefillThreads;
   constexpr int M = kPrefillRows;
   constexpr int TK = kPrefillTile;
@@ -117,6 +124,11 @@ __global__ void __launch_bounds__(kPrefillThreads) prefill_fma_kernel(
       store1(out + ((static_cast<long>(b) * Tq + t) * Hq + h * G + r % G) * D +
                  c % D,
              0.f);
+    }
+    if constexpr (kLse) {
+      for (int r = tid; r < rows_used; r += NT)
+        lse[(static_cast<long>(b) * Tq + t0 + r / G) * Hq + h * G + r % G] =
+            kNegInf;
     }
     return;
   }
@@ -261,17 +273,22 @@ __global__ void __launch_bounds__(kPrefillThreads) prefill_fma_kernel(
         for (int e = 0; e < 4; ++e)
           store1(o + (tx + 8 * c) * 4 + e, acc[i][c * 4 + e] / l_i);
       }
+      if constexpr (kLse) {   // l is the row's whole sum in all 8 lanes
+        if (tx == 0)
+          lse[(static_cast<long>(b) * Tq + t) * Hq + h * G + r % G] =
+              l[i] > 0.f ? m[i] + logf(l[i]) : kNegInf;
+      }
     }
   }
 }
 
-template <typename QT, typename KT, int D, typename View>
+template <typename QT, typename KT, int D, bool kLse, typename View>
 int launch_prefill_fma(const void* q, const void* k, const void* v,
                        const float* k_scale, const float* v_scale,
                        const int* start, int start_stride, const int* valid,
-                       void* out, const View& view, int B, int Tq, int Hq,
-                       int Hkv, cudaStream_t stream) {
-  auto kernel = prefill_fma_kernel<QT, KT, D, View>;
+                       void* out, float* lse, const View& view, int B, int Tq,
+                       int Hq, int Hkv, cudaStream_t stream) {
+  auto kernel = prefill_fma_kernel<QT, KT, D, kLse, View>;
   constexpr size_t smem = prefill_fma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -283,7 +300,7 @@ int launch_prefill_fma(const void* q, const void* k, const void* v,
   kernel<<<grid, kPrefillThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(k),
       static_cast<const KT*>(v), k_scale, v_scale, start, start_stride, valid,
-      static_cast<QT*>(out), view, Tq, Hq, G, TQ,
+      static_cast<QT*>(out), lse, view, Tq, Hq, G, TQ,
       static_cast<float>(1.0 / sqrt(static_cast<double>(D))));
   return static_cast<int>(cudaGetLastError());
 }
@@ -517,6 +534,19 @@ struct PrefillMmaTile {
     }
   }
 
+  // rows g and g + 8's log-sum-exp, natural log, into at[i] (null: unused)
+  __device__ __forceinline__ void store_lse(float* const at[2],
+                                            int lane) const {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float lq = l[i] + __shfl_xor_sync(0xffffffffu, l[i], 1);
+      lq += __shfl_xor_sync(0xffffffffu, lq, 2);
+      if (at[i] != nullptr && (lane & 3) == 0)
+        *at[i] = lq > 0.f ? (m[i] + log2f(lq)) * 0.6931471805599453f
+                          : kNegInf;
+    }
+  }
+
   // rows g and g + 8 normalised into their output rows (null: unused)
   __device__ __forceinline__ void store(__nv_bfloat16* const row[2],
                                         int lane) const {
@@ -575,14 +605,14 @@ __device__ __forceinline__ void widen_int8_stage(const unsigned char* src,
 // of their linear index, so the KV heads vary fastest and the query tiles
 // count down: every head's last tiles (the longest walks) go first, and
 // the shortest fill the tail.
-template <typename KT, int D, typename View>
+template <typename KT, int D, bool kLse, typename View>
 __global__ void __launch_bounds__(32 * kMmaWarps) prefill_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const KT* __restrict__ k,
     const KT* __restrict__ v, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int* __restrict__ start,
     int start_stride, const int* __restrict__ valid,
-    __nv_bfloat16* __restrict__ out, View view, int Tq, int Hq, int G,
-    int TQ, float scale_log2) {
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, View view,
+    int Tq, int Hq, int G, int TQ, float scale_log2) {
   using R = PrefillRings<KT, D>;
   using L = typename R::Store;
   using C = typename R::Compute;
@@ -619,6 +649,9 @@ __global__ void __launch_bounds__(32 * kMmaWarps) prefill_mma_kernel(
       const int r = c / (D / 2);
       *reinterpret_cast<uint32_t*>(out + row_offset(r) + 2 * (c % (D / 2))) =
           0u;
+    }
+    if constexpr (kLse) {
+      for (int r = tid; r < rows_used; r += NT) lse[row_offset(r) / D] = kNegInf;
     }
     return;
   }
@@ -752,16 +785,21 @@ __global__ void __launch_bounds__(32 * kMmaWarps) prefill_mma_kernel(
   __nv_bfloat16* orow[2] = {roff[0] >= 0 ? out + roff[0] : nullptr,
                             roff[1] >= 0 ? out + roff[1] : nullptr};
   prod.store(orow, lane);
+  if constexpr (kLse) {
+    float* lrow[2] = {roff[0] >= 0 ? lse + roff[0] / D : nullptr,
+                      roff[1] >= 0 ? lse + roff[1] / D : nullptr};
+    prod.store_lse(lrow, lane);
+  }
 }
 
-template <typename KT, int D, typename View>
+template <typename KT, int D, bool kLse, typename View>
 int launch_prefill_mma(const void* q, const void* k, const void* v,
                        const float* k_scale, const float* v_scale,
                        const int* start, int start_stride, const int* valid,
-                       void* out, const View& view, int B, int Tq, int Hq,
-                       int Hkv, cudaStream_t stream) {
+                       void* out, float* lse, const View& view, int B, int Tq,
+                       int Hq, int Hkv, cudaStream_t stream) {
   constexpr int NW = kMmaWarps;
-  auto kernel = prefill_mma_kernel<KT, D, View>;
+  auto kernel = prefill_mma_kernel<KT, D, kLse, View>;
   constexpr int smem = PrefillRings<KT, D>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -772,28 +810,28 @@ int launch_prefill_mma(const void* q, const void* k, const void* v,
   kernel<<<grid, 32 * NW, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KT*>(k),
       static_cast<const KT*>(v), k_scale, v_scale, start, start_stride, valid,
-      static_cast<__nv_bfloat16*>(out), view, Tq, Hq, G, TQ,
+      static_cast<__nv_bfloat16*>(out), lse, view, Tq, Hq, G, TQ,
       static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(D))));
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launch on `stream`; returns the CUDA error of the launch (0 = launched).
 // The body is chosen at compile time on the types: no launch falls back to
-// the other.
-template <typename QT, typename KT, int D, typename View>
+// the other.  kLse: the form that writes `lse` [B, Tq, Hq].
+template <typename QT, typename KT, int D, bool kLse = false, typename View>
 int launch_prefill(const void* q, const void* k, const void* v,
                    const float* k_scale, const float* v_scale,
                    const int* start, int start_stride, const int* valid,
                    void* out, const View& view, int B, int Tq, int Hq,
-                   int Hkv, cudaStream_t stream) {
+                   int Hkv, cudaStream_t stream, float* lse = nullptr) {
   if constexpr (uses_tensor_cores<QT, KT>()) {
-    return launch_prefill_mma<KT, D>(q, k, v, k_scale, v_scale, start,
-                                     start_stride, valid, out, view, B, Tq,
-                                     Hq, Hkv, stream);
+    return launch_prefill_mma<KT, D, kLse>(q, k, v, k_scale, v_scale, start,
+                                           start_stride, valid, out, lse,
+                                           view, B, Tq, Hq, Hkv, stream);
   } else {
-    return launch_prefill_fma<QT, KT, D>(q, k, v, k_scale, v_scale, start,
-                                         start_stride, valid, out, view, B,
-                                         Tq, Hq, Hkv, stream);
+    return launch_prefill_fma<QT, KT, D, kLse>(
+        q, k, v, k_scale, v_scale, start, start_stride, valid, out, lse, view,
+        B, Tq, Hq, Hkv, stream);
   }
 }
 

@@ -26,21 +26,28 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_args import (MIN_DENOMINATOR, NEG_INF,
-                                            check_launch, dense_args,
-                                            gather_kv, masked_softmax,
+                                            check_launch, check_lse_types,
+                                            dense_args, gather_kv,
+                                            masked_lse, masked_softmax,
                                             pool_args, ptr)
 
 
-def _attend(q, kd, vd, mask):
+def _attend(q, kd, vd, mask, return_lse: bool = False):
     """q [B, Hq, D] over float32 keys/values [B, S, Hkv, D] with a key
-    mask [B, S]: masked softmax in float32, result in q's type."""
+    mask [B, S]: masked softmax in float32, result in q's type; with
+    ``return_lse`` also the float32 log-sum-exp [B, Hq] of the masked
+    scores (-1e30 for a row with no key)."""
     B, Hq, D = q.shape
     Hkv = kd.shape[2]
     qg = q.float().reshape(B, Hkv, Hq // Hkv, D)
     s = torch.einsum("bkgd,bskd->bkgs", qg, kd) * (D ** -0.5)
-    p = masked_softmax(s, mask[:, None, None, :])
+    m = mask[:, None, None, :]
+    p = masked_softmax(s, m)
     o = torch.einsum("bkgs,bskd->bkgd", p, vd)
-    return o.reshape(B, Hq, D).to(q.dtype)
+    o = o.reshape(B, Hq, D).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, masked_lse(s, m).reshape(B, Hq)
 
 
 def split_decode_ref(q, kd, vd, lengths, keys_per_split: int):
@@ -191,26 +198,30 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths, *,
 paged_decode_attention.launches = 0
 
 
-def decode_attention_ref(q, k, v, lengths):
+def decode_attention_ref(q, k, v, lengths, *, return_lse: bool = False):
     """Plain PyTorch version: masked softmax in float32 over the first
     ``lengths[b]`` keys of each row.  Same arguments and result as
     :func:`decode_attention`."""
     return _attend(q, k.float(), v.float(),
-                   _key_mask(k.shape[1], lengths, q.device))
+                   _key_mask(k.shape[1], lengths, q.device), return_lse)
 
 
-def decode_attention(q, k, v, lengths):
+def decode_attention(q, k, v, lengths, *, return_lse: bool = False):
     """Dense flash-decode: q [B, Hq, D] attends over the first
     ``lengths[b]`` keys of its row of k, v [B, S, Hkv, D] (any layout
     whose last axis is contiguous; read in place).  lengths: int [B],
     capped at S.  Head dims 64, 112, 128 and 256, up to 16 query heads a KV
     head, float32 or bfloat16.  Returns [B, Hq, D] in q's type; a row with
-    no key comes out zero.
+    no key comes out zero.  With ``return_lse`` (q and the cache in one
+    type) returns ``(out, lse)``, lse the float32 [B, Hq] log-sum-exp of
+    each row's scores over its live keys, -1e30 for a row with none: a
+    piece of a row's keys (a rank's slot shard) then combines with the
+    others by it.
 
     A CUDA tensor launches the kernel (or raises); only a CPU tensor goes
     to the plain version."""
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, lengths)
+        return decode_attention_ref(q, k, v, lengths, return_lse=return_lse)
     if q.device.type != "cuda":
         raise RuntimeError(f"unsupported device {q.device}")
     q = q.contiguous()
@@ -219,6 +230,10 @@ def decode_attention(q, k, v, lengths):
     S, s_b, s_tok, s_head, q_code, kv_code = dense_args(q, k, v)
     if lengths.shape != (B,) or lengths.device != q.device:
         raise ValueError("lengths do not match q's batch")
+    lse = None
+    if return_lse:
+        check_lse_types(q, k)
+        lse = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
     Hkv = k.shape[2]
     kps = keys_per_split(B, Hkv, S)
     splits, ws_acc, ws_m, ws_l = _workspace(q, S, kps)
@@ -227,12 +242,12 @@ def decode_attention(q, k, v, lengths):
     with torch.cuda.device(q.device):
         err = lib.dense_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), ptr(ws_acc), ptr(ws_m), ptr(ws_l), B, Hq, Hkv,
-            D, S, kps, splits, s_b, s_tok, s_head, q_code, kv_code,
+            out.data_ptr(), ptr(ws_acc), ptr(ws_m), ptr(ws_l), ptr(lse), B,
+            Hq, Hkv, D, S, kps, splits, s_b, s_tok, s_head, q_code, kv_code,
             torch.cuda.current_stream().cuda_stream)
     check_launch(err, "decode_attention")
     decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 #: kernel launches made by this wrapper (the plain version never counts)

@@ -46,6 +46,23 @@ def masked_softmax(scores, mask):
                        torch.zeros_like(probs))
 
 
+def masked_lse(scores, mask):
+    """Log-sum-exp over the last axis of the scores ``mask`` keeps, in
+    float32; -1e30 for a row with no valid key (the kernels' ``lse``)."""
+    s = torch.where(mask, scores.float(),
+                    torch.full_like(scores, NEG_INF, dtype=torch.float32))
+    return torch.where(mask.any(dim=-1), torch.logsumexp(s, dim=-1),
+                       torch.full((), NEG_INF))
+
+
+def check_lse_types(q, k):
+    """The kernels' log-sum-exp form is built for a query and a cache of
+    one type."""
+    if q.dtype != k.dtype:
+        raise TypeError(f"the lse form takes q and the cache in one type, "
+                        f"got {q.dtype} and {k.dtype}")
+
+
 def _aligned16(t, n_outer: int) -> bool:
     """The data pointer and the ``n_outer`` outer strides, in bytes, are
     multiples of 16: the kernels bring KV rows in by 16-byte ``cp.async``

@@ -219,7 +219,7 @@ def _locals(tree):
 
 
 def trace_case(case, mesh, use_hints: bool = False,
-               seq_parallel: bool = False) -> dict:
+               seq_parallel: bool = False, sites: bool = False) -> dict:
     """Distribute ``case.args`` by ``case.in_specs`` over ``mesh``, run
     ``case.fn`` once on them, and return the traced rank's counts:
     ``arg_bytes``, ``out_bytes``, ``temp_bytes``,
@@ -227,7 +227,9 @@ def trace_case(case, mesh, use_hints: bool = False,
     ``collective_bytes_per_device``, ``collectives`` (a count by op),
     ``collective_bytes_by_op``, ``trace_s`` and ``torch`` (the version
     traced: DTensor's placement choices, and so the collectives, change
-    between versions)."""
+    between versions); with ``sites``, ``collective_bytes_by_site``, the
+    bytes by op and the model code's line that issued them, largest
+    first."""
     from torch.distributed.tensor.experimental import implicit_replication
     mode = case.fake_mode
     with mode:
@@ -236,7 +238,7 @@ def trace_case(case, mesh, use_hints: bool = False,
     arg_locals = _locals(args)
     arg_bytes = sum(t.numel() * t.element_size() for t in arg_locals)
     rank = RankTrace(known=[t.untyped_storage() for t in arg_locals])
-    coll = CollectiveCounter()
+    coll = CollectiveCounter(sites=sites)
     hint = (hints_mod.hints(shd.data_axes(mesh), "model", seq_parallel,
                             mesh) if use_hints else contextlib.nullcontext())
     t0 = time.perf_counter()
@@ -255,6 +257,8 @@ def trace_case(case, mesh, use_hints: bool = False,
             seen.add(key)
             out_bytes += t.untyped_storage().nbytes()
     peak = arg_bytes + rank.peak
+    by_site = {} if not sites else {"collective_bytes_by_site": {
+        k: float(v) for k, v in coll.bytes_by_site.most_common()}}
     return {
         "arg_bytes": int(arg_bytes),
         "out_bytes": int(out_bytes),
@@ -267,6 +271,7 @@ def trace_case(case, mesh, use_hints: bool = False,
                                    for k, v in coll.bytes_by_op.items()},
         "trace_s": round(trace_s, 3),
         "torch": torch.__version__,
+        **by_site,
     }
 
 
@@ -278,13 +283,14 @@ def use_hints_for(case) -> bool:
 
 
 def run_case(arch: str, shape: str, multi_pod: bool,
-             verbose: bool = True, use_hints: bool = True) -> dict:
+             verbose: bool = True, use_hints: bool = True,
+             sites: bool = False) -> dict:
     world = 512 if multi_pod else 256
     start_fake_world(world)
     mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
     case = build_case(arch, shape, mesh)
     hinted = use_hints and use_hints_for(case)
-    counts = trace_case(case, mesh, use_hints=hinted)
+    counts = trace_case(case, mesh, use_hints=hinted, sites=sites)
     rec = {
         "arch": arch, "shape": shape,
         "mesh": "2x16x16" if multi_pod else "16x16",
@@ -323,6 +329,9 @@ def main(argv=None):
     ap.add_argument("--jobs", type=int, default=1,
                     help="cases traced side by side, each in a process of "
                          "its own")
+    ap.add_argument("--sites", action="store_true",
+                    help="also record the collective bytes by the model "
+                         "code's line that issued them (slower)")
     args = ap.parse_args(argv)
 
     archs = ASSIGNED if (args.all or not args.arch) else [args.arch]
@@ -359,7 +368,8 @@ def main(argv=None):
             tag = f"{arch} x {shape} x {mname}"
             try:
                 t0 = time.perf_counter()
-                rec = run_case(arch, shape, mp, verbose=False)
+                rec = run_case(arch, shape, mp, verbose=False,
+                               sites=args.sites)
                 save(rec, args.runs_dir)
                 r = rec["roofline"]
                 print(f"OK   {tag}: peak/dev="
@@ -395,7 +405,8 @@ def _fan_out(todo, args):
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--case",
                f"{arch}:{shape}:{'multi' if mp else 'single'}",
                "--runs-dir", args.runs_dir] + (
-                   ["--skip-existing"] if args.skip_existing else [])
+                   ["--skip-existing"] if args.skip_existing else []) + (
+                   ["--sites"] if args.sites else [])
         r = subprocess.run(cmd, env=env, capture_output=True, text=True)
         print("".join(l + "\n" for l in r.stdout.splitlines()
                       if l.startswith(("OK", "FAIL"))), end="", flush=True)

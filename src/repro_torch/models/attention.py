@@ -14,7 +14,14 @@ Where the reference returns an updated copy of a donated cache buffer,
 the port UPDATES THE CACHE IN PLACE and returns the same tensors.  On
 DTensor parameters and caches (the sharded path, ``distributed/``) the
 cache writes, the kernels' calls and the attention products run on each
-rank's local shards (``hints.local``).
+rank's local shards (``hints.local``).  A dense cache split along its
+slot axis (``cache_specs``' ``auto`` where the KV heads do not divide
+the model axis, or ``seq``) is read where it lies: each rank runs the
+kernel over its own slots and returns a partial result with its
+log-sum-exp, and the partials are combined over the split axis by small
+all-reduces (:func:`combine_partials`), as the reference's compiled
+program reduces the softmax over a sharded axis.  No collective moves
+the cache.
 
 The cache read goes through the hand-written kernels' wrappers — paged
 decode / chunked prefill over a block pool, dense decode / chunked
@@ -37,7 +44,8 @@ from repro_torch.kernels.chunked_prefill_attention.ops import (
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       paged_decode_attention)
 # rows with no valid key (all-masked) come out zero, as the kernels' do
-from repro_torch.kernels.paged_args import masked_softmax as _masked_softmax
+from repro_torch.kernels.paged_args import (MIN_DENOMINATOR, NEG_INF,
+                                            masked_softmax as _masked_softmax)
 from repro_torch.models.common import apply_rope, dense_init, rms_norm
 
 
@@ -252,26 +260,43 @@ def _write_cache_local(cache_k, cache_v, k_new, v_new, start, valid_len,
         cache[bidx, j] = torch.where(keep, new[bidx, wcl], cache[bidx, j])
 
 
+def _slot_dims(cache):
+    """The mesh dimensions that split a DTensor cache [B, S, Hkv, D]
+    along its slot axis S, in mesh order (none for a plain tensor)."""
+    if not hints.is_sharded(cache):
+        return []
+    from torch.distributed.tensor import Shard
+    return [i for i, p in enumerate(cache.placements)
+            if isinstance(p, Shard) and p.dim == 1]
+
+
+def _slot_offset(mesh, s_dims, S: int) -> int:
+    """The first slot of this rank's shard of an S-slot axis split over
+    the mesh dimensions ``s_dims`` (DTensor's even split, the first
+    dimension the major one)."""
+    shard, n = 0, 1
+    for i in s_dims:
+        shard = shard * mesh.size(i) + mesh.get_local_rank(i)
+        n *= mesh.size(i)
+    return shard * -(-S // n)
+
+
 def _write_cache_sharded(cache_k, cache_v, k_new, v_new, start, valid_len):
     """:func:`write_cache` into DTensor caches, in place on each rank's
     shard (an in-place write cannot change a DTensor's placements).  The
     new KV follows the cache's batch and head splits and is whole along
     T; where the cache splits its slot axis, each rank writes the slots
     it holds."""
-    from torch.distributed.tensor import Shard
     mesh = cache_k.device_mesh
     cpl = tuple(cache_k.placements)
     new_pl = hints.placements_for(cache_k, (0, None, 2, 3))
     vec_pl = hints.placements_for(cache_k, (0,))
-    s_dims = [i for i, p in enumerate(cpl)
-              if isinstance(p, Shard) and p.dim == 1]
+    s_dims = _slot_dims(cache_k)
     S = cache_k.shape[1]
 
     def local(ck, cv, kn, vn, st, vl):
-        shard = 0                       # this rank's shard along S
-        for i in s_dims:
-            shard = shard * mesh.size(i) + mesh.get_local_rank(i)
-        _write_cache_local(ck, cv, kn, vn, st, vl, shard * ck.shape[1], S)
+        _write_cache_local(ck, cv, kn, vn, st, vl,
+                           _slot_offset(mesh, s_dims, S), S)
 
     hints.local_call(local, (cache_k, cache_v, k_new, v_new, start,
                              valid_len),
@@ -280,11 +305,93 @@ def _write_cache_sharded(cache_k, cache_v, k_new, v_new, start, valid_len):
 
 
 #: axis maps (``hints.local``) of a dense read on local shards, against
-#: the cache [B, S, Hkv, D]: the cache whole along S (a slot-split cache
-#: is gathered), q [B, Hq, D] / [B, T, Hq, D] split as its rows and its
-#: KV heads, a per-row vector as the rows
+#: the cache [B, S, Hkv, D]: the cache whole along S (a cache split along
+#: S takes :func:`_read_slot_shards` instead), q [B, Hq, D] / [B, T, Hq,
+#: D] split as its rows and its KV heads, a per-row vector as the rows
 _KV, _Q1, _QT, _ROWS = (0, None, 2, None), (0, 2, None), \
     (0, None, 2, None), (0,)
+
+
+def _combine(o, lse, reduce):
+    """Attention over keys cut into pieces from each piece's result ``o``
+    [..., D] and its float32 log-sum-exp ``lse`` [...] (-1e30 where the
+    piece holds no live key); ``reduce(x, op)`` takes ``op`` ("max" or
+    "sum") over the pieces.  ``M`` the max of lse, then the sums of
+    ``exp(lse - M) o`` and ``exp(lse - M)`` in float32 (one reduction of
+    D + 1 values a row), divided; in o's type.  A row with no key in any
+    piece comes out zero."""
+    m = reduce(lse, "max")
+    w = torch.where(lse > NEG_INF / 2, torch.exp(lse - m),
+                    torch.zeros((), device=lse.device))
+    packed = reduce(torch.cat([o.float() * w[..., None], w[..., None]],
+                              dim=-1), "sum")
+    out = packed[..., :-1] / packed[..., -1:].clamp_min(MIN_DENOMINATOR)
+    return out.to(o.dtype)
+
+
+def combine_partials(o, lse, groups=()):
+    """:func:`_combine` over the pieces one a rank of each process group
+    in ``groups``: an all-reduce max of lse and an all-reduce sum of
+    D + 1 float32 values a row a group, as functional collectives
+    (``_c10d_functional``, which the dry-run counts; the ops themselves,
+    without ``funcol``'s asynchronous wrapper, whose eager dispatch cost
+    ~0.3 ms a call on the host).  With no group, ``o`` itself up to one
+    rounding to float32 and back."""
+    c10d = torch.ops._c10d_functional
+
+    def reduce(x, op):
+        for g in groups:
+            x = c10d.wait_tensor(c10d.all_reduce(x, op, g.group_name))
+        return x
+
+    return _combine(o, lse, reduce)
+
+
+def combine_stacked(o, lse):
+    """:func:`_combine` over pieces stacked on a leading axis (o [n, ...,
+    D], lse [n, ...]) in one process: the plain version of
+    :func:`combine_partials`, for tests and tools."""
+    return _combine(o, lse, lambda x, op: (
+        x.amax(0, keepdim=True) if op == "max"
+        else x.sum(0, keepdim=True)))[0]
+
+
+def _decode_shard(q, k, v, lengths, offset: int):
+    """Kernel 3 on a rank's slot shard (slots ``offset ..`` of each row):
+    a row's live keys are a prefix of the slot axis, so here the first
+    ``clamp(length - offset, 0, S_r)`` of the shard."""
+    n = torch.clamp(lengths.long() - offset, 0, k.shape[1])
+    return decode_attention(q, k, v, n.to(torch.int32), return_lse=True)
+
+
+def _prefill_shard(q, k, v, start, offset: int):
+    """Kernel 4 on a rank's slot shard: the chunk at ``start`` is, on
+    slots ``offset ..``, the chunk at ``start - offset``."""
+    return chunked_prefill_attention(q, k, v, start[0] - offset,
+                                     return_lse=True)
+
+
+def _read_slot_shards(read, q, ck, cv, arg, q_dims):
+    """A read of a DTensor cache split along its slot axis, where it
+    lies: on each rank, ``read(q, k, v, arg, offset)`` over the rank's
+    own slots (q whole over the mesh dimensions that split them: a few
+    KB), the partials then combined over those dimensions only
+    (:func:`combine_partials`).  The result is split as ``q_dims`` maps
+    q onto the cache."""
+    mesh = ck.device_mesh
+    s_dims = _slot_dims(ck)
+    groups = [mesh.get_group(i) for i in s_dims]
+    S = ck.shape[1]
+    cpl = tuple(ck.placements)
+    q_pl = hints.placements_for(ck, q_dims)
+
+    def region(q, k, v, a):
+        o, lse = read(q, k, v, a, _slot_offset(mesh, s_dims, S))
+        return combine_partials(o, lse, groups)
+
+    return hints.local_call(region, (q, ck, cv, arg),
+                            (q_pl, cpl, cpl, hints.placements_for(ck, _ROWS)),
+                            q_pl, mesh)
 
 
 def self_attention(p, cfg, x, positions, cache=None, *, window: int = 0,
@@ -342,12 +449,19 @@ def self_attention(p, cfg, x, positions, cache=None, *, window: int = 0,
         held = cache["k"][rows, slots], cache["v"][rows, slots]
     ck, cv = write_cache(cache["k"], cache["v"], k, v, positions[:, 0],
                          None if held is not None else valid_len)
+    split_slots = bool(_slot_dims(ck))
     if T == 1:
         # decode: the dense decode kernel over each row's first
         # position + 1 keys
-        o = hints.local(decode_attention, ck, in_dims=(_Q1, _KV, _KV, _ROWS),
-                        out_dims=_Q1)(
-            q[:, 0], ck, cv, (positions[:, -1] + 1).to(torch.int32))[:, None]
+        lengths = (positions[:, -1] + 1).to(torch.int32)
+        if split_slots:
+            o = _read_slot_shards(_decode_shard, q[:, 0], ck, cv, lengths,
+                                  _Q1)
+        else:
+            o = hints.local(decode_attention, ck,
+                            in_dims=(_Q1, _KV, _KV, _ROWS),
+                            out_dims=_Q1)(q[:, 0], ck, cv, lengths)
+        o = o[:, None]
         if held is not None:
             write_cache(ck, cv, held[0][:, None], held[1][:, None],
                         positions[:, 0], 1 - valid_len)
@@ -355,13 +469,18 @@ def self_attention(p, cfg, x, positions, cache=None, *, window: int = 0,
         # exact-shape chunk: the dense chunked-prefill kernel takes one
         # offset for the batch (the engine prefills dense rows one slot
         # at a time)
-        o = hints.local(
-            lambda q, k, v, start: chunked_prefill_attention(q, k, v,
-                                                             start[0]),
-            ck, in_dims=(_QT, _KV, _KV, _ROWS), out_dims=_QT)(
-                q, ck, cv, positions[:, 0])
+        if split_slots:
+            o = _read_slot_shards(_prefill_shard, q, ck, cv,
+                                  positions[:, 0], _QT)
+        else:
+            o = hints.local(
+                lambda q, k, v, start: chunked_prefill_attention(q, k, v,
+                                                                 start[0]),
+                ck, in_dims=(_QT, _KV, _KV, _ROWS), out_dims=_QT)(
+                    q, ck, cv, positions[:, 0])
     else:
         # T-padded rows of unequal offsets: masked softmax over the cache
+        # (a slot-split cache is gathered here)
         S = ck.shape[1]
         # full cache written sequentially: slot j holds position j once
         # the row's frontier has passed it

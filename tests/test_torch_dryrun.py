@@ -60,8 +60,7 @@ try:
                 case = build_case(arch, sname, mesh, cfg=cfg,
                                   prefill_chunks=2)
                 expect = 0
-                def local(_, spec, t):
-                    global expect
+                def shard_bytes(spec, t):
                     n = t.element_size()
                     for i, d in enumerate(t.shape):
                         e = spec[i] if i < len(spec) else None
@@ -71,12 +70,26 @@ try:
                             div *= sizes[a]
                         assert d % div == 0, (arch, sname, t.shape, spec)
                         n *= d // div
-                    expect += n
+                    return n
+                def local(_, spec, t):
+                    global expect
+                    expect += shard_bytes(spec, t)
                 for spec, a in zip(case.in_specs, case.args):
                     shd.map_with_path(local, spec, a)
                 rec = dryrun.trace_case(case, mesh,
-                                        use_hints=dryrun.use_hints_for(case))
+                                        use_hints=dryrun.use_hints_for(case),
+                                        sites=sname == "decode_32k")
                 rec["expect_arg_bytes"] = expect
+                # a rank's bytes of the KV caches split along their slot
+                # axis ([L, B, S, H, D] leaves, S on the model axis)
+                rec["slot_split_cache_bytes"] = 0
+                if case.kind != "train":
+                    cspec, cache = case.in_specs[1], case.args[1]
+                    for name in shd.KV_LEAVES:
+                        if name in cache and len(cspec[name]) > 2 \
+                                and cspec[name][2] == "model":
+                            rec["slot_split_cache_bytes"] += shard_bytes(
+                                cspec[name], cache[name])
                 out[f"{arch}|{sname}|{mname}"] = rec
 finally:
     dryrun.stop_fake_world()
@@ -123,6 +136,31 @@ def test_trace_case_counts(traces, arch, shape, mesh):
     assert sum(rec["collectives"].values()) > 0
     assert rec["collective_bytes_per_device"] == pytest.approx(
         sum(rec["collective_bytes_by_op"].values()))
+    if arch == "qwen2.5-3b" and mesh == "2x4" and shape != "train_4k":
+        # its 2 KV heads do not divide the model axis of 4
+        assert rec["slot_split_cache_bytes"] > 0
+    if shape == "decode_32k" and mesh == "2x4" \
+            and rec["slot_split_cache_bytes"]:
+        # a cache split along its slot axis is read where it lies: what
+        # is gathered is less than the rank's share of it
+        gathered = rec["collective_bytes_by_op"].get(
+            "all_gather_into_tensor", 0)
+        assert gathered < rec["slot_split_cache_bytes"], rec
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_decode_collective_bytes_by_site(traces, arch):
+    """``sites``: the collective bytes by the model code's line that
+    issued them add up to the total; where the cache is split along its
+    slot axis, the combine of the partial softmaxes is among them."""
+    rec = traces[f"{arch}|decode_32k|2x4"]
+    by_site = rec["collective_bytes_by_site"]
+    assert sum(by_site.values()) == pytest.approx(
+        rec["collective_bytes_per_device"])
+    combine = [k for k in by_site
+               if k.startswith("all_reduce attention.py:")
+               and k.endswith(" reduce")]
+    assert bool(combine) == bool(rec["slot_split_cache_bytes"]), by_site
 
 
 def test_dryrun_cli_full_size_case():
@@ -147,7 +185,9 @@ def test_dryrun_cli_full_size_case():
     assert rec["torch"] == torch.__version__
     roof = rec["roofline"]
     assert roof["collective_link"] == "dcn"
-    assert roof["dominant"] in ("compute", "memory", "collective")
+    # as the reference's record of the case reads: its 3 KV heads leave
+    # the cache split along its slots, read where it lies
+    assert roof["dominant"] == "memory"
     assert 0 < rec["arg_bytes"] <= rec["peak_bytes_per_device"]
 
 

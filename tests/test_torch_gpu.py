@@ -344,6 +344,79 @@ def test_dense_prefill_kernel_matches_plain_version(cuda, hq, hkv, d, dtype,
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
 
 
+#: a log-sum-exp of a few units: float32 sums of up to 256 exponentials
+#: in another order (exp2 of pre-scaled scores in the tensor-core bodies)
+LSE_TOL = 1e-4
+
+
+@pytest.mark.parametrize("S", [256, 32], ids=["splits", "one_split"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hq,hkv,d", DENSE_SHAPES)
+def test_dense_decode_lse_form_and_slot_halves(cuda, hq, hkv, d, dtype, S):
+    """Kernel 3's log-sum-exp form: its output bit-equal to the serving
+    form's, its lse the plain version's, and two slot halves (each with
+    its local lengths) combined by ``combine_stacked`` the whole call;
+    with several splits (pass 2 writes lse) and with one (pass 1 does)."""
+    lengths = [1, 16, 17, 37, 160, 255, 300, 0]     # past S: capped
+    half = S // 2
+    k, v = _dense_kv(cuda, len(lengths), S, hkv, d, dtype)
+    q = torch.randn((len(lengths), hq, d), device=cuda).to(dtype)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = decode_attention.launches
+    out, lse = decode_attention(q, k, v, ln, return_lse=True)
+    serve = decode_attention(q, k, v, ln)
+    parts = [decode_attention(
+        q, k[:, off:off + half], v[:, off:off + half],
+        (ln.long() - off).clamp(0, half).to(torch.int32), return_lse=True)
+        for off in (0, half)]
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 4
+    assert torch.equal(out, serve)
+    ref, ref_lse = decode_attention_ref(q, k, v, ln, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (len(lengths), hq)
+    assert lse[-1].eq(-1e30).all()
+    assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+    comb = attn.combine_stacked(torch.stack([p[0] for p in parts]),
+                                torch.stack([p[1] for p in parts]))
+    for want in (serve, ref):
+        assert (comb.float() - want.float()).abs().max().item() \
+            <= TOL[dtype]
+    assert not comb[-1].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hq,hkv,d", DENSE_SHAPES)
+@pytest.mark.parametrize("tq,prefix", [(64, 0), (37, 100), (200, 56),
+                                       (65, 129)])
+def test_dense_prefill_lse_form_and_slot_halves(cuda, hq, hkv, d, dtype, tq,
+                                                prefix):
+    """Kernel 4's log-sum-exp form, as kernel 3's, its two slot halves at
+    the chunk's offset less the half's first slot (negative for the
+    second half, or past it for the first)."""
+    S, half = 256, 128
+    k, v = _dense_kv(cuda, 2, S, hkv, d, dtype)
+    q = torch.randn((2, tq, hq, d), device=cuda).to(dtype)
+    pre = torch.tensor(prefix, dtype=torch.int32, device=cuda)
+    out, lse = chunked_prefill_attention(q, k, v, pre, return_lse=True)
+    serve = chunked_prefill_attention(q, k, v, pre)
+    parts = [chunked_prefill_attention(
+        q, k[:, off:off + half], v[:, off:off + half], prefix - off,
+        return_lse=True) for off in (0, half)]
+    torch.cuda.synchronize()
+    assert torch.equal(out, serve)
+    ref, ref_lse = chunked_prefill_attention_ref(q, k, v, prefix,
+                                                 return_lse=True)
+    assert lse.shape == (2, tq, hq)
+    assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+    comb = attn.combine_stacked(torch.stack([p[0] for p in parts]),
+                                torch.stack([p[1] for p in parts]))
+    for want in (serve, ref):
+        assert (comb.float() - want.float()).abs().max().item() \
+            <= TOL[dtype]
+
+
 #: the scan: float32 sums over a chunk in another order (the reference's
 #: kernel tests hold it to the same bound)
 SSD_TOL = 2e-3
@@ -1496,12 +1569,15 @@ def nccl_mesh(cuda, tmp_path):
         dist.destroy_process_group()
 
 
-def test_tp_local_sharded_forward_matches_plain(nccl_mesh):
+@pytest.mark.parametrize("kv_mode", ["auto", "seq"])
+def test_tp_local_sharded_forward_matches_plain(nccl_mesh, kv_mode):
     """qwen2.5-3b at reduced width, float32: DTensor parameters and a
     dense cache sharded by ``param_specs`` / ``cache_specs`` on the
     one-rank mesh give the plain tensors' greedy tokens and logits (to the
     kernels' float32 tolerance), and the sharded run reaches kernels 3
-    and 4 on local shards."""
+    and 4 on local shards.  ``seq`` splits the cache along its slot axis:
+    the read of the rank's slot shard (the kernels' log-sum-exp form and
+    the all-reduce combine over the one-rank group)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.distributed import hints
@@ -1535,7 +1611,8 @@ def test_tp_local_sharded_forward_matches_plain(nccl_mesh):
     mesh = nccl_mesh
     n0 = decode_attention.launches, chunked_prefill_attention.launches
     sharded = run(shd.shard(mesh, shd.param_specs(cfg, 1), params),
-                  shd.shard(mesh, shd.cache_specs(cfg, mesh, B, S),
+                  shd.shard(mesh, shd.cache_specs(cfg, mesh, B, S,
+                                                  kv_mode=kv_mode),
                             tf.init_cache(cfg, B, S, device=dev)), mesh)
     assert decode_attention.launches - n0[0] == steps * cfg.num_layers
     assert chunked_prefill_attention.launches - n0[1] == cfg.num_layers

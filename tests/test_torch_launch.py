@@ -193,3 +193,33 @@ def test_collective_counter_counts_output_bytes_once():
     assert counts["reduce_scatter_tensor"] == 1
     assert counts["all_to_all_single"] == 2     # the permute is one too
     assert "wait_tensor" not in counts
+
+
+_EAGER_COUNTER_SCRIPT = r"""
+import torch, torch.distributed as dist
+from torch.distributed import _functional_collectives as funcol
+from repro_torch.analysis.roofline import CollectiveCounter
+dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                        world_size=1)
+try:
+    with CollectiveCounter() as c:
+        out = funcol.all_reduce(torch.ones(128), "sum", dist.group.WORLD)
+        out = out + 0
+    print(c.total_bytes, dict(c.counts))
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def test_collective_counter_skips_the_eager_result_wrapper():
+    """Eager ``funcol`` wraps a collective's result in a
+    ``_c10d_functional._wrap_tensor_autograd`` op (not under fake
+    tensors, where it waits instead): the counter counts the collective
+    alone."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    r = subprocess.run([sys.executable, "-c", _EAGER_COUNTER_SCRIPT],
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    total, counts = r.stdout.strip().splitlines()[-1].split(" ", 1)
+    assert int(total) == 128 * 4
+    assert eval(counts) == {"all_reduce": 1}

@@ -5,7 +5,8 @@ and the reference, on the CPU: four gloo processes on meshes (2, 2) and
 gathers the logits.  The (1, 4) mesh puts qwen2.5-3b-smoke's 2 KV heads
 over a model axis of 4: the heads stay whole (gathered) and its cache
 splits its slot axis instead (``cache_specs``' ``auto``), which the
-sharded write and the gathered read must handle.  The process group
+sharded write and the read of each rank's slot shard, whose partial
+softmaxes are combined by all-reduce, must handle.  The process group
 lives in the subprocesses only."""
 import os
 import socket
@@ -285,7 +286,8 @@ def test_sharded_paged_forward_matches_port(run, mesh):
 
 def test_qwen_cache_splits_slots_on_the_1x4_mesh(run):
     """2 KV heads over a model axis of 4: ``auto`` splits the slot axis
-    (the write on local shards, the read after a gather)."""
+    (the write and the read on local shards, the read's partials
+    combined by all-reduce: no gather of the cache)."""
     _, _, out = run
     assert "Shard(dim=2)" in out["qwen2.5-3b_1x4_kind"][1]
     assert "Shard(dim=3)" in out["qwen2.5-3b_2x2_kind"][1]
