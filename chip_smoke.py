@@ -819,7 +819,12 @@ def derive_derates(log, cost):
       model FLOPs over what the mean prefill-only iteration leaves.  The
       device works while the host still enqueues, so the remainder
       understates its time: it is floored at a quarter of the iteration.
-    FLOPs and bytes are the estimator's own (``CostModel``)."""
+    FLOPs and bytes are the estimator's own (``CostModel``).
+
+    ``by_kind`` sets, for each kind of iteration, the mean the estimator
+    predicts under the derates in use (``iteration_time`` of each
+    iteration's prefill chunks and decode contexts, times its steps)
+    beside the measured mean."""
     inst = cost.inst
     pre = [e for e in log if e["prefill"] and not e["decode"]]
     dec = [e for e in log if e["decode"] and not e["prefill"]]
@@ -842,7 +847,14 @@ def derive_derates(log, cost):
 
     out = {"prefill_only_iterations": len(pre),
            "decode_only_iterations": len(dec),
-           "mixed_iterations": len(mixed)}
+           "mixed_iterations": len(mixed),
+           "by_kind": {kind: {
+               "measured_mean_s": mean([e["total_s"] for e in es]),
+               "predicted_mean_s": mean([e["steps"] * cost.iteration_time(
+                   e["prefill"], e["decode"]) for e in es]),
+               "n": len(es)}
+               for kind, es in (("decode_only", dec), ("prefill_only", pre),
+                                ("mixed", mixed)) if es}}
     if mixed:
         out["mixed_mean_s"] = mean([e["total_s"] for e in mixed])
         out["mixed_mean_prefill_tokens"] = mean(
@@ -946,7 +958,37 @@ def phase_serve(cfg, params):
          kv_pool_bytes=pool_bytes,
          peak_memory_bytes=torch.cuda.max_memory_allocated(),
          graphs=graph_stats(executors, log), measured=derates)
-    return launches
+    return derates
+
+
+#: the derates ``derive_derates`` sets, as ``core/hw.py`` names them
+DERATES = ("iteration_overhead_s", "decode_membw_eff", "prefill_mfu")
+
+
+def serve_only(argv):
+    """``--serve [N]``: ``model`` (which warms the card's libraries up
+    before ``serve``, as the whole script does), ``serve`` N times (3 by
+    default), then the median of each derate over the runs (what
+    ``core/hw.py`` takes), then ``live``, ``live_warm`` and ``frontend``
+    under the derates in use."""
+    n = int(argv[0]) if argv else 3
+    build.load_library()
+    cfg = get_config(MODEL)
+    params = tf.init_params(0, cfg, device=DEV)
+    phase_model(cfg, params)
+    runs = []
+    for _ in range(n):
+        runs.append(phase_serve(cfg, params))
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("derates_median", runs=n, **{
+        k: float(np.median([r[k] for r in runs])) for k in DERATES},
+        by_run={k: [r[k] for r in runs] for k in DERATES},
+        in_use=runs[0]["in_use"])
+    _, executors = phase_live(cfg, params)
+    phase_live(cfg, params, "live_warm", executors)
+    phase_frontend(cfg, executors)
+    return 0
 
 
 def serve_workload(cfg):
@@ -1712,9 +1754,6 @@ def check_dense_decode(shape, lengths, S=DENSE_S):
             < ln[:, None])[:, None, None, :]
     lib = lambda: torch.nn.functional.scaled_dot_product_attention(
         q[:, :, None, :], kt, vt, attn_mask=mask, enable_gqa=True)
-    keys = sum(min(n, S) for n in lengths)
-    nbytes = (2 * keys * hkv * d * k.element_size()
-              + 2 * q.numel() * q.element_size() + 4 * B)
     return {"kernel": "decode_attention", "form": "serving",
             "shape": shape_name, "dtype": str(dtype).split(".")[1], "B": B,
             "S": S,
@@ -1722,7 +1761,30 @@ def check_dense_decode(shape, lengths, S=DENSE_S):
             "plain_max_abs": ref_max,
             "ms": time_ms(run), "plain_ms": time_ms(plain),
             "library_ms": time_ms(lib),
-            **bound(nbytes, 4.0 * hq * d * keys, dtype)}
+            **bound(*dense_decode_work(q, k, lengths), dtype)}
+
+
+def dense_decode_work(q, k, lengths, lse=False):
+    """Kernel 3's (bytes, operations) at these inputs: the live keys and
+    values read once, q read and the output written once, the lengths;
+    4 B a row more for the log-sum-exp form's lse."""
+    B, hq, d = q.shape
+    keys = sum(min(n, k.shape[1]) for n in lengths)
+    nbytes = (2 * keys * k.shape[2] * d * k.element_size()
+              + 2 * q.numel() * q.element_size() + 4 * B)
+    return nbytes + (4 * B * hq if lse else 0), 4.0 * hq * d * keys
+
+
+def dense_prefill_work(q, k, prefix, lse=False):
+    """Kernel 4's (bytes, operations): the keys below the chunk's
+    frontier once, q read and the output written once, a query-key pair
+    for every token and every key it may see; 4 B a query row more for
+    the log-sum-exp form's lse."""
+    B, tq, hq, d = q.shape
+    pairs = B * (tq * prefix + tq * (tq + 1) // 2)
+    nbytes = (2 * B * (prefix + tq) * k.shape[2] * d * k.element_size()
+              + 2 * q.numel() * q.element_size() + 4)
+    return nbytes + (4 * B * tq * hq if lse else 0), 4.0 * hq * d * pairs
 
 
 def check_dense_prefill(shape, B, tq, prefix, S=DENSE_S):
@@ -1750,11 +1812,6 @@ def check_dense_prefill(shape, B, tq, prefix, S=DENSE_S):
     qt = q.transpose(1, 2)
     lib = lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
-    # what this chunk needs: keys below its frontier once, a query-key pair
-    # for every token and every key it may see
-    pairs = B * (tq * prefix + tq * (tq + 1) // 2)
-    nbytes = (2 * B * (prefix + tq) * hkv * d * k.element_size()
-              + 2 * q.numel() * q.element_size() + 4)
     return {"kernel": "chunked_prefill_attention", "form": "serving",
             "shape": shape_name, "dtype": str(dtype).split(".")[1], "B": B,
             "Tq": tq,
@@ -1762,7 +1819,7 @@ def check_dense_prefill(shape, B, tq, prefix, S=DENSE_S):
             "tol": TOL[dtype], "plain_max_abs": ref_max,
             "ms": time_ms(run), "plain_ms": time_ms(plain),
             "library_ms": time_ms(lib),
-            **bound(nbytes, 4.0 * hq * d * pairs, dtype)}
+            **bound(*dense_prefill_work(q, k, prefix), dtype)}
 
 
 #: kernels 3 and 4's log-sum-exp (f32, a few units to ~10 at these
@@ -1822,6 +1879,7 @@ def check_dense_decode_lse(shape, lengths, S=DENSE_S):
         <= TOL[dtype], res
     res["ms"] = time_ms(serve)
     res["lse_ms"] = time_ms(lse_form)
+    res.update(bound(*dense_decode_work(q, k, lengths, lse=True), dtype))
     return res
 
 
@@ -1865,6 +1923,7 @@ def check_dense_prefill_lse(shape, B, tq, prefix, S=DENSE_S):
         <= TOL[dtype], res
     res["ms"] = time_ms(serve)
     res["lse_ms"] = time_ms(lse_form)
+    res.update(bound(*dense_prefill_work(q, k, prefix, lse=True), dtype))
     return res
 
 
@@ -3313,18 +3372,20 @@ KERNEL_META = {
 # the sharded path: one rank, and the dry-run of the production meshes
 # ---------------------------------------------------------------------------
 
-#: tp_local: rows, prompt tokens, greedy decode steps
+#: tp_local: rows, prompt tokens, greedy decode steps; gemma3-1b's
+#: prompt, longer than its 1024-token window
 TP_ROWS, TP_PROMPT, TP_STEPS = 2, 512, 16
+TP_PROMPT_GEMMA = 1536
 
 
 def _tp_run(cfg, params, cache, prompt, mesh=None):
-    """A TP_PROMPT-token prefill and TP_STEPS greedy decode steps; returns
+    """A prefill of the prompt and TP_STEPS greedy decode steps; returns
     (tokens [B, 1 + steps], logits [1 + steps, B, V] float32, the decode
     steps' ms between CUDA events around each call, the host's enqueueing
     included).  With ``mesh`` (sharded): every call under hints and
     implicit replication, the logits gathered whole (one rank: no
     transfer)."""
-    B = prompt.shape[0]
+    B, n_prompt = prompt.shape
     whole = (lambda t: t.full_tensor()) if mesh is not None else \
         (lambda t: t)
     toks, logits, step_ms = [], [], []
@@ -3344,7 +3405,7 @@ def _tp_run(cfg, params, cache, prompt, mesh=None):
             a.record()
             last, cache = tf.decode_step(
                 params, cfg, nxt[:, None], cache,
-                torch.full((B,), TP_PROMPT + i, dtype=torch.long,
+                torch.full((B,), n_prompt + i, dtype=torch.long,
                            device=DEV))
             last = whole(last)
             b.record()
@@ -3361,6 +3422,65 @@ def _sharded(mesh):
         yield
 
 
+def _tp_family(mesh, cfg, prompt, S, paths):
+    """One family's sharded runs on the one-rank ``mesh``: the plain run
+    on plain tensors, then, for each (path, kv_mode) of ``paths``, the
+    same calls on DTensor parameters and a cache sharded by
+    ``cache_specs(kv_mode)``: tokens equal (held), logits bit-equal or
+    within phase_model's bf16 rule (held), kernels 3 and 4 launched
+    (held).  Returns ({kv_mode: record}, the plain run, {path:
+    launches})."""
+    from repro_torch.distributed import sharding as shd
+    params = tf.init_params(0, cfg, device=DEV)
+    plain = _tp_run(cfg, params, tf.init_cache(cfg, TP_ROWS, S, device=DEV),
+                    prompt)
+    dparams = shd.shard(mesh, shd.param_specs(cfg, 1), params)
+    rows = lambda t: shd.shard(mesh, shd.P(("data",)), t)
+    ref = []
+
+    def bf16_rule(sharded):
+        # phase_model's bf16 rule: no further from the float32 plain
+        # result than the bf16 plain run is (x 1.5 + slack)
+        if not ref:
+            ref.append(_tp_run(cfg, _float_tree(params), tf.init_cache(
+                cfg, TP_ROWS, S, dtype=torch.float32, device=DEV), prompt))
+        err = lambda a: max(
+            ((a[1][i] - ref[0][1][i]).abs().max()
+             / ref[0][1][i].abs().max().clamp_min(1.0)).item()
+            for i in range(TP_STEPS + 1))
+        rule = {"sharded_vs_f32": err(sharded), "plain_vs_f32": err(plain)}
+        assert rule["sharded_vs_f32"] <= 1.5 * rule["plain_vs_f32"] \
+            + MODEL_TOL_BF16_SLACK, rule
+        return rule
+
+    runs, by_path = {}, {}
+    for path, kv_mode in paths:
+        dcache = shd.shard(mesh, shd.cache_specs(cfg, mesh, TP_ROWS, S,
+                                                 kv_mode=kv_mode),
+                           tf.init_cache(cfg, TP_ROWS, S, device=DEV))
+        reset_counts(DENSE_KERNELS)
+        sharded = _tp_run(cfg, dparams, dcache, rows(prompt), mesh)
+        launches = launch_counts(("decode_attention",
+                                  "chunked_prefill_attention"))
+        assert all(n > 0 for n in launches.values()), (path, launches)
+        bit_equal = torch.equal(plain[1], sharded[1])
+        runs[kv_mode] = dict(
+            cache_placements={n: str(dcache[n].placements)
+                              for n in sorted(dcache)},
+            tokens_equal=torch.equal(plain[0], sharded[0]),
+            logits_bit_equal=bit_equal,
+            logits_max_abs_diff=(plain[1] - sharded[1]).abs().max().item(),
+            bf16_rule=None if bit_equal else bf16_rule(sharded),
+            launches=launches,
+            decode_step_ms_sharded=sum(sharded[2]) / TP_STEPS,
+            decode_step_ms_sharded_all=sharded[2])
+        assert runs[kv_mode]["tokens_equal"], (path, plain[0], sharded[0])
+        by_path[path] = launches
+        del dcache
+    del params, dparams
+    return runs, plain, by_path
+
+
 def phase_tp_local():
     """The sharded path on the card: an NCCL group of world 1, the
     (1, 1) local mesh, qwen2.5-3b's full-width parameters sharded by
@@ -3371,9 +3491,13 @@ def phase_tp_local():
     A second sharded run takes ``kv_mode="seq"``: the cache split along
     its slot axis, read where it lies (kernels 3 and 4's log-sum-exp form
     on the rank's slots, the partials combined by all-reduce over the
-    one-rank group).  Returns the two runs' launches by path."""
+    one-rank group).  A third, ``tp_local_gemma3_seq``, takes gemma3-1b
+    at full width under ``seq``, with a prompt longer than its window:
+    its ring caches, split along their slots too, are read where they lie
+    by the masked partial softmax (the ring wraps, and the prefill writes
+    only its last window of keys), its global layers by kernels 3 and 4's
+    log-sum-exp forms.  Returns the runs' launches by path."""
     import torch.distributed as dist
-    from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_local_mesh
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
@@ -3383,63 +3507,36 @@ def phase_tp_local():
                             device_id=torch.device("cuda:0"))
     try:
         mesh = make_local_mesh(model=1)
-        cfg = get_config(MODEL)
-        S = TP_PROMPT + TP_STEPS
-        params = tf.init_params(0, cfg, device=DEV)
         rng = np.random.default_rng(31)
+        cfg = get_config(MODEL)
         prompt = torch.from_numpy(rng.integers(
             1, cfg.vocab_size, size=(TP_ROWS, TP_PROMPT))).to(DEV)
-        plain = _tp_run(cfg, params, tf.init_cache(cfg, TP_ROWS, S,
-                                                   device=DEV), prompt)
-        dparams = shd.shard(mesh, shd.param_specs(cfg, 1), params)
-        rows = lambda t: shd.shard(mesh, shd.P(("data",)), t)
-        ref = []
-
-        def bf16_rule(sharded):
-            # phase_model's bf16 rule: no further from the float32 plain
-            # result than the bf16 plain run is (x 1.5 + slack)
-            if not ref:
-                ref.append(_tp_run(cfg, _float_tree(params), tf.init_cache(
-                    cfg, TP_ROWS, S, dtype=torch.float32, device=DEV),
-                    prompt))
-            err = lambda a: max(
-                ((a[1][i] - ref[0][1][i]).abs().max()
-                 / ref[0][1][i].abs().max().clamp_min(1.0)).item()
-                for i in range(TP_STEPS + 1))
-            rule = {"sharded_vs_f32": err(sharded), "plain_vs_f32": err(plain)}
-            assert rule["sharded_vs_f32"] <= 1.5 * rule["plain_vs_f32"] \
-                + MODEL_TOL_BF16_SLACK, rule
-            return rule
-
-        runs, by_path = {}, {}
-        for path, kv_mode in (("tp_local", "auto"), ("tp_local_seq", "seq")):
-            dcache = shd.shard(mesh, shd.cache_specs(cfg, mesh, TP_ROWS, S,
-                                                     kv_mode=kv_mode),
-                               tf.init_cache(cfg, TP_ROWS, S, device=DEV))
-            reset_counts(DENSE_KERNELS)
-            sharded = _tp_run(cfg, dparams, dcache, rows(prompt), mesh)
-            launches = launch_counts(("decode_attention",
-                                      "chunked_prefill_attention"))
-            assert all(n > 0 for n in launches.values()), (path, launches)
-            bit_equal = torch.equal(plain[1], sharded[1])
-            runs[kv_mode] = dict(
-                cache_placements=str(dcache["k"].placements),
-                tokens_equal=torch.equal(plain[0], sharded[0]),
-                logits_bit_equal=bit_equal,
-                bf16_rule=None if bit_equal else bf16_rule(sharded),
-                launches=launches,
-                decode_step_ms_sharded=sum(sharded[2]) / TP_STEPS,
-                decode_step_ms_sharded_all=sharded[2])
-            assert runs[kv_mode]["tokens_equal"], (path, plain[0], sharded[0])
-            by_path[path] = launches
-            del dcache
+        runs, plain, by_path = _tp_family(
+            mesh, cfg, prompt, TP_PROMPT + TP_STEPS,
+            (("tp_local", "auto"), ("tp_local_seq", "seq")))
         auto = runs.pop("auto")
         emit("tp_local", model=cfg.name, mesh=list(mesh.shape),
              backend=dist.get_backend(), rows=TP_ROWS, prompt=TP_PROMPT,
              decode_steps=TP_STEPS, **auto,
              decode_step_ms_plain=sum(plain[2]) / TP_STEPS,
              decode_step_ms_plain_all=plain[2], seq=runs["seq"])
-        del params, dparams
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        gcfg = get_config(GEMMA)
+        assert TP_PROMPT_GEMMA > gcfg.sliding_window
+        prompt = torch.from_numpy(rng.integers(
+            1, gcfg.vocab_size, size=(TP_ROWS, TP_PROMPT_GEMMA))).to(DEV)
+        runs, plain, gpaths = _tp_family(
+            mesh, gcfg, prompt, TP_PROMPT_GEMMA + TP_STEPS,
+            (("tp_local_gemma3_seq", "seq"),))
+        by_path.update(gpaths)
+        emit("tp_local_gemma3_seq", model=gcfg.name, layers=gcfg.num_layers,
+             window=gcfg.sliding_window, mesh=list(mesh.shape),
+             backend=dist.get_backend(), rows=TP_ROWS,
+             prompt=TP_PROMPT_GEMMA, decode_steps=TP_STEPS, **runs["seq"],
+             decode_step_ms_plain=sum(plain[2]) / TP_STEPS,
+             decode_step_ms_plain_all=plain[2])
         return by_path
     finally:
         dist.destroy_process_group()
@@ -3552,6 +3649,8 @@ def main(argv):
     assert torch.backends.cuda.matmul.allow_tf32 is False
     if argv[:1] == ["--scan-only"]:
         return scan_only(argv[1:])
+    if argv[:1] == ["--serve"]:
+        return serve_only(argv[1:])
     if argv[:1] == ["--tp-local"]:
         build.load_library()
         phase_tp_local()

@@ -9,25 +9,32 @@ dataclass's, so the estimator reads them unchanged: ``ici_*`` is the
 link between the cards of one host (NVLink here) and ``dcn_bw`` the link
 between hosts.
 
-The three efficiency derates are MEASURED, not published.  They come
-from the iterations that ``chip_smoke.py`` (phase ``serve``, function
-``derive_derates``) timed for qwen2.5-3b at full width through the port's
-own kernels on an NVIDIA H100 80GB HBM3 at a 700 W power limit:
+The three efficiency derates are MEASURED, not published.  They are the
+median, rounded, of three runs of ``chip_smoke.py --serve 3`` (phase
+``serve``, function ``derive_derates``): qwen2.5-3b at full width through
+the port's own kernels, its decode-only iterations replayed from CUDA
+graphs, on one "NVIDIA H100 80GB HBM3, 700.00 W" (``nvidia-smi
+--query-gpu=name,power.limit --format=csv,noheader``).  Each run served
+32 requests in 429 iterations: 320 decode-only (5.3 rows at 1,077 tokens
+of context on average), 21 prefill-only (602 tokens), 88 mixed.
 
 * ``iteration_overhead_s``: the mean time the host needs to enqueue a
-  decode-only iteration: 45.6, 45.6, 54.6 and 55.4 ms in four runs of
-  127-160 such iterations each (the host is shared and varies), 50 ms
-  here.  The eager per-layer loop issues the 36 layers' launches one by
-  one and no batch hides that;
+  decode-only iteration: 4.45, 4.25 and 5.07 ms, 4 ms here.  A replay
+  enqueues in about 0.5 ms; most of the mean is the ten first uses of a
+  decode bucket (an eager run and a capture, 84-314 ms each);
 * ``decode_membw_eff``: model bytes over what the mean decode-only
-  iteration (50.0-57.3 ms at 9-11 rows) leaves after that overhead,
-  floored at a quarter of the iteration: 0.169, 0.172, 0.152, 0.150;
+  iteration (11.57, 11.40, 12.19 ms) leaves after that overhead:
+  0.294, 0.292, 0.293;
 * ``prefill_mfu``: model FLOPs over what the mean prefill-only iteration
-  (48.4-60.3 ms at about 640 tokens) leaves after the overhead, with the
-  same floor: 0.34, 0.28, 0.29, 0.30.
+  (50.6, 45.7, 48.4 ms) leaves after the overhead: 0.084, 0.094,
+  0.090.  Prefill runs eagerly, and its time is mostly the host's.
 
-``PERF.md`` records the runs.  These numbers describe the port as it is
-(simple kernels, a host-bound loop), not what the card can do.
+The runs had two instances (a P-heavy and a D-heavy one) sharing the one
+card, so the values absorb that sharing as far as ``serve``'s mix does.
+The eager mixed iteration (54-55 ms measured) is host-bound, and the
+estimator models it at 23 ms: one overhead constant cannot fit both it
+and the replayed decode.  ``PERF.md`` records the runs.  These numbers
+describe the port as it is, not what the card can do.
 """
 from __future__ import annotations
 
@@ -48,9 +55,9 @@ class HardwareSpec:
                                         # mesh beyond one host
 
     # achieved-efficiency derates, measured (see module docstring):
-    prefill_mfu: float = 0.30           # share of peak_flops in prefill
-    decode_membw_eff: float = 0.16      # share of hbm_bw in decode
-    iteration_overhead_s: float = 50e-3  # host enqueue time an iteration
+    prefill_mfu: float = 0.09           # share of peak_flops in prefill
+    decode_membw_eff: float = 0.29      # share of hbm_bw in decode
+    iteration_overhead_s: float = 4e-3  # host enqueue time an iteration
 
 
 H100 = HardwareSpec()

@@ -42,18 +42,24 @@ def main(argv=None):
                                              max_seq=512, hbm_blocks=24,
                                              device=args.device),
         hbm_blocks=24, block_size=16)
-    slo = SLO(ttft=10.0, tpot=0.2)
+    n, prompt = 8, 48
+    # the TPOT limit in the estimator's own time: ten P-heavy iterations
+    # (a chunk beside the burst's decodes), so that a flowed request's
+    # TPOT approaches it, and flows back, whatever the card's derates
+    slo = SLO(ttft=10.0, tpot=10 * cost.iteration_time(
+        [(sliders.s_p, 0)], [prompt] * n))
     policy = TaiChiPolicy(instances, cost, slo.ttft, slo.tpot, sliders)
     cluster = Cluster(policy, cost)
 
     # simultaneous burst so decodes overlap and D-heavy HBM crosses the
     # watermark while outputs are mid-flight
-    reqs = [Request(prompt_len=48, max_new_tokens=32,
+    reqs = [Request(prompt_len=prompt, max_new_tokens=32,
                     hidden_output_len=32, arrival=0.0)
-            for i in range(8)]
+            for i in range(n)]
     cluster.run(reqs)
 
-    print(f"degrade flows: {cluster.degrade_count}  "
+    print(f"TPOT limit: {slo.tpot * 1e3:.1f} ms  "
+          f"degrade flows: {cluster.degrade_count}  "
           f"backflows: {cluster.backflow_count}  "
           f"total transfers: {cluster.transfer_count}")
     for r in reqs:

@@ -17,11 +17,11 @@ cache writes, the kernels' calls and the attention products run on each
 rank's local shards (``hints.local``).  A dense cache split along its
 slot axis (``cache_specs``' ``auto`` where the KV heads do not divide
 the model axis, or ``seq``) is read where it lies: each rank runs the
-kernel over its own slots and returns a partial result with its
-log-sum-exp, and the partials are combined over the split axis by small
-all-reduces (:func:`combine_partials`), as the reference's compiled
-program reduces the softmax over a sharded axis.  No collective moves
-the cache.
+kernel (or the masked softmax, below) over its own slots and returns a
+partial result with its log-sum-exp, and the partials are combined over
+the split axis by small all-reduces (:func:`combine_partials`), as the
+reference's compiled program reduces the softmax over a sharded axis.
+No collective moves the cache: not the dense cache's, not a ring's.
 
 The cache read goes through the hand-written kernels' wrappers — paged
 decode / chunked prefill over a block pool, dense decode / chunked
@@ -29,7 +29,8 @@ prefill over a per-row cache: on a CUDA tensor they launch the kernel,
 on a CPU tensor they take the plain version.  A dense chunk padded to a
 common length (``valid_len`` with T > 1) is the one read left to a
 masked softmax, as in the reference, and so is the sliding-window read
-(no Pallas kernel of the reference computes it).  The other reads no
+(no Pallas kernel of the reference computes it); on a slot-split cache
+both take it piece by piece (:func:`_masked_partial`).  The other reads no
 Pallas kernel of the reference computes are plain PyTorch too: the
 cache-free (training) path, cross-attention over a precomputed encoder
 KV, and the encoder's bidirectional self-attention.
@@ -45,6 +46,7 @@ from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       paged_decode_attention)
 # rows with no valid key (all-masked) come out zero, as the kernels' do
 from repro_torch.kernels.paged_args import (MIN_DENOMINATOR, NEG_INF,
+                                            masked_lse,
                                             masked_softmax as _masked_softmax)
 from repro_torch.models.common import apply_rope, dense_init, rms_norm
 
@@ -329,6 +331,21 @@ def _combine(o, lse, reduce):
     return out.to(o.dtype)
 
 
+def _masked_partial(q, k, v, mask):
+    """Attention of q [B, T, Hq, D] over a piece of the keys, k, v [B, S,
+    Hkv, D], that ``mask`` [B, 1, 1, T, S] keeps: ``(o, lse)``, o [B, T,
+    Hq, D] in q's type, lse the float32 [B, T, Hq] log-sum-exp of the
+    kept scores, -1e30 (and o zero) for a query the piece gives no key,
+    as the kernels' log-sum-exp forms return them.  The plain masked
+    softmax of the unsplit read, on the piece."""
+    B, T, hq, dh = q.shape
+    scores = _gqa_scores(q, k)
+    probs = _masked_softmax(scores, mask)
+    o = torch.einsum("bkgts,bskd->btkgd", probs.to(q.dtype), v)
+    lse = masked_lse(scores, mask).permute(0, 3, 1, 2)
+    return o.reshape(B, T, hq, dh), lse.reshape(B, T, hq)
+
+
 def combine_partials(o, lse, groups=()):
     """:func:`_combine` over the pieces one a rank of each process group
     in ``groups``: an all-reduce max of lse and an all-reduce sum of
@@ -371,6 +388,20 @@ def _prefill_shard(q, k, v, start, offset: int):
                                      return_lse=True)
 
 
+def _padded_kv_pos(positions, S: int, offset: int = 0):
+    """Positions [B, S] held by slots ``offset ..`` of a full cache
+    written sequentially: slot j holds position j once the row's
+    frontier has passed it, else -1."""
+    j = offset + torch.arange(S, device=positions.device)[None, :]
+    return torch.where(j < positions[:, -1:] + 1, j, torch.full_like(j, -1))
+
+
+def _padded_shard(q, k, v, positions, offset: int):
+    """The T-padded chunk's masked softmax on a rank's slot shard."""
+    kv_pos = _padded_kv_pos(positions, k.shape[1], offset)
+    return _masked_partial(q, k, v, causal_mask(positions, kv_pos))
+
+
 def _read_slot_shards(read, q, ck, cv, arg, q_dims):
     """A read of a DTensor cache split along its slot axis, where it
     lies: on each rank, ``read(q, k, v, arg, offset)`` over the rank's
@@ -392,6 +423,51 @@ def _read_slot_shards(read, q, ck, cv, arg, q_dims):
     return hints.local_call(region, (q, ck, cv, arg),
                             (q_pl, cpl, cpl, hints.placements_for(ck, _ROWS)),
                             q_pl, mesh)
+
+
+def _read_ring_shards(q, k, v, ck, cv, positions, window: int):
+    """:func:`_ring_attention`'s read of a ring cache split along its
+    slots, where it lies: each rank's masked softmax over its own slots
+    (their positions ``ring_slot_positions``' slice from the rank's
+    offset), the partials combined over the splitting mesh dimensions.
+    The chunk's fresh keys, whole on every rank, join the piece of the
+    rank whose offset is 0, so that they enter the combine once.  Only
+    the chunk's first ``window - 1`` queries reach back past the chunk
+    into the ring; where the slots lie on more than one rank, each rank
+    attends the later ones over the fresh keys alone, so that a long
+    chunk's combine moves those rows only.  q [B, T, Hq, D] -> o, split
+    as q."""
+    mesh = ck.device_mesh
+    s_dims = _slot_dims(ck)
+    groups = [mesh.get_group(i) for i in s_dims]
+    S = ck.shape[1]
+    cpl = tuple(ck.placements)
+    q_pl = hints.placements_for(ck, _QT)
+    kv_pl = hints.placements_for(ck, _KV)
+    pieces = 1
+    for i in s_dims:
+        pieces *= mesh.size(i)
+
+    def region(q, k, v, ck, cv, pos):
+        offset = _slot_offset(mesh, s_dims, S)
+        h = q.shape[1] if pieces == 1 else min(q.shape[1], window - 1)
+        kv_pos = ring_slot_positions(pos[:, 0], S)[
+            :, offset:offset + ck.shape[1]]
+        if offset == 0:
+            kv_pos = torch.cat([kv_pos, pos.long()], dim=1)
+            ck, cv = torch.cat([ck, k], dim=1), torch.cat([cv, v], dim=1)
+        o, lse = _masked_partial(q[:, :h], ck, cv,
+                                 causal_mask(pos[:, :h], kv_pos, window))
+        o = combine_partials(o, lse, groups)
+        if h == q.shape[1]:
+            return o
+        tail, _ = _masked_partial(q[:, h:], k, v,
+                                  causal_mask(pos[:, h:], pos, window))
+        return torch.cat([o, tail], dim=1)
+
+    return hints.local_call(region, (q, k, v, ck, cv, positions),
+                            (q_pl, kv_pl, kv_pl, cpl, cpl,
+                             hints.placements_for(ck, _ROWS)), q_pl, mesh)
 
 
 def self_attention(p, cfg, x, positions, cache=None, *, window: int = 0,
@@ -478,16 +554,13 @@ def self_attention(p, cfg, x, positions, cache=None, *, window: int = 0,
                                                                  start[0]),
                 ck, in_dims=(_QT, _KV, _KV, _ROWS), out_dims=_QT)(
                     q, ck, cv, positions[:, 0])
+    elif split_slots:
+        # T-padded rows of unequal offsets on a slot-split cache: the
+        # masked softmax on each rank's slots, the partials combined
+        o = _read_slot_shards(_padded_shard, q, ck, cv, positions, _QT)
     else:
         # T-padded rows of unequal offsets: masked softmax over the cache
-        # (a slot-split cache is gathered here)
-        S = ck.shape[1]
-        # full cache written sequentially: slot j holds position j once
-        # the row's frontier has passed it
-        write_end = positions[:, -1] + 1
-        j = torch.arange(S, device=x.device)[None, :]
-        kv_pos = torch.where(j < write_end[:, None], j,
-                             torch.full_like(j, -1))
+        kv_pos = _padded_kv_pos(positions, ck.shape[1])
         mask = causal_mask(positions, kv_pos)
         probs = _masked_softmax(_gqa_scores(q, ck), mask)
         return _gqa_out(probs.to(x.dtype), cv, p["wo"]), cache
@@ -503,18 +576,24 @@ def _ring_attention(p, x, q, k, v, positions, cache, window: int,
     prior cache plus its own fresh keys, then writes itself (its last S
     tokens when T >= S).  ``valid_len`` drops the writes it excludes (a
     row mask at T == 1: the rows a full-slot-batch decode does not
-    schedule); it changes no read.  Returns (out, cache), the cache
-    updated in place."""
-    T = x.shape[1]
+    schedule); it changes no read.  A ring split along its slots is read
+    where it lies (:func:`_read_ring_shards`).  Returns (out, cache), the
+    cache updated in place."""
+    B, T = x.shape[:2]
     S = cache["k"].shape[1]
     start = positions[:, 0]
-    kv_pos = torch.cat([ring_slot_positions(start, S), positions.long()],
-                       dim=1)
-    mask = causal_mask(positions, kv_pos, window)
-    k_all = torch.cat([cache["k"], k], dim=1)
-    v_all = torch.cat([cache["v"], v], dim=1)
-    probs = _masked_softmax(_gqa_scores(q, k_all), mask)
-    out = _gqa_out(probs.to(x.dtype), v_all, p["wo"])
+    if _slot_dims(cache["k"]):
+        o = _read_ring_shards(q, k, v, cache["k"], cache["v"], positions,
+                              window)
+        out = o.reshape(B, T, -1).to(x.dtype) @ p["wo"]
+    else:
+        kv_pos = torch.cat([ring_slot_positions(start, S),
+                            positions.long()], dim=1)
+        mask = causal_mask(positions, kv_pos, window)
+        k_all = torch.cat([cache["k"], k], dim=1)
+        v_all = torch.cat([cache["v"], v], dim=1)
+        probs = _masked_softmax(_gqa_scores(q, k_all), mask)
+        out = _gqa_out(probs.to(x.dtype), v_all, p["wo"])
     if T >= S:
         k, v = k[:, -S:], v[:, -S:]
         start = positions[:, -1] + 1 - S

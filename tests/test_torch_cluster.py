@@ -115,6 +115,23 @@ def test_h100_spec_is_the_cards_own():
     assert hw.InstanceSpec(tp=2).flops == 2 * 989e12
 
 
+#: qwen2.5-3b's mean decode-only iteration on the card, in seconds: the
+#: median of three ``chip_smoke.py --serve`` runs of the ``serve`` phase
+#: (graph replays and first-use captures; H100 80GB HBM3 at 700 W),
+#: which ``PERF.md`` records with the derates they gave
+CARD_DECODE_ONLY_S = 11.57e-3
+
+
+def test_h100_derates_model_the_cards_decode_iteration():
+    """The derates in ``core/hw.py`` model a decode-only iteration of
+    ``serve``'s mean batch (11 rows at 1,080 tokens of context) within
+    25 % of the card's measured mean."""
+    from repro_torch.configs import get_config
+    cost = CostModel(get_config("qwen2.5-3b"), hw.InstanceSpec(tp=1))
+    t = cost.iteration_time((), [1080] * 11)
+    assert abs(t - CARD_DECODE_ONLY_S) <= 0.25 * CARD_DECODE_ONLY_S, t
+
+
 def _serve(torch_side: bool, cfg, params):
     """quickstart's stack at a small size: 1 P-heavy + 1 D-heavy."""
     if torch_side:

@@ -22,11 +22,14 @@ MESHES = {"2x4": ((2, 4), ("data", "model")),
           "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
 # what each mesh traces: DTensor's sharding propagation over a three-axis
 # mesh costs several times a two-axis one's, so (2, 2, 2) traces the
-# family that holds both attention and the scan, and no training step
-MESH_CASES = {"2x4": (FAMILIES, SHAPES),
-              "2x2x2": (["zamba2-7b"], ["prefill_32k", "decode_32k"])}
-CASES = [(a, s, m) for m, (archs, shapes) in MESH_CASES.items()
-         for a in archs for s in shapes]
+# family that holds both attention and the scan, and no training step;
+# (2, 4) also the sliding-window family's decode, whose ring caches (one
+# KV head) split along their slots
+MESH_CASES = {"2x4": [(a, s) for a in FAMILIES for s in SHAPES]
+              + [("gemma3-1b", "decode_32k")],
+              "2x2x2": [("zamba2-7b", s) for s in ("prefill_32k",
+                                                   "decode_32k")]}
+CASES = [(a, s, m) for m, cases in MESH_CASES.items() for a, s in cases]
 
 _WORKER = r"""
 import dataclasses, json, sys
@@ -47,50 +50,52 @@ TRAIN_SEQ = {"vlm": 1024}
 dryrun.start_fake_world(8)
 out = {}
 try:
-    for mname, (shape, names, families, shapes) in meshes.items():
+    for mname, (shape, names, cases) in meshes.items():
         mesh = init_device_mesh("cpu", tuple(shape),
                                 mesh_dim_names=tuple(names))
         sizes = shd.axis_sizes(mesh)
-        for arch in families:
+        for arch, sname in cases:
             cfg = specs.probe_cfg(dataclasses.replace(
                 reduced_config(arch), ssm_chunk=4096), 1)
             specs.SHAPES["train_4k"] = dict(
                 specs.SHAPES["train_4k"], seq=TRAIN_SEQ.get(cfg.family, 128))
-            for sname in shapes:
-                case = build_case(arch, sname, mesh, cfg=cfg,
-                                  prefill_chunks=2)
-                expect = 0
-                def shard_bytes(spec, t):
-                    n = t.element_size()
-                    for i, d in enumerate(t.shape):
-                        e = spec[i] if i < len(spec) else None
-                        div = 1
-                        for a in (e if isinstance(e, tuple) else
-                                  (() if e is None else (e,))):
-                            div *= sizes[a]
-                        assert d % div == 0, (arch, sname, t.shape, spec)
-                        n *= d // div
-                    return n
-                def local(_, spec, t):
-                    global expect
-                    expect += shard_bytes(spec, t)
-                for spec, a in zip(case.in_specs, case.args):
-                    shd.map_with_path(local, spec, a)
-                rec = dryrun.trace_case(case, mesh,
-                                        use_hints=dryrun.use_hints_for(case),
-                                        sites=sname == "decode_32k")
-                rec["expect_arg_bytes"] = expect
-                # a rank's bytes of the KV caches split along their slot
-                # axis ([L, B, S, H, D] leaves, S on the model axis)
-                rec["slot_split_cache_bytes"] = 0
-                if case.kind != "train":
-                    cspec, cache = case.in_specs[1], case.args[1]
-                    for name in shd.KV_LEAVES:
-                        if name in cache and len(cspec[name]) > 2 \
-                                and cspec[name][2] == "model":
-                            rec["slot_split_cache_bytes"] += shard_bytes(
-                                cspec[name], cache[name])
-                out[f"{arch}|{sname}|{mname}"] = rec
+            case = build_case(arch, sname, mesh, cfg=cfg,
+                              prefill_chunks=2)
+            expect = 0
+            def shard_bytes(spec, t):
+                n = t.element_size()
+                for i, d in enumerate(t.shape):
+                    e = spec[i] if i < len(spec) else None
+                    div = 1
+                    for a in (e if isinstance(e, tuple) else
+                              (() if e is None else (e,))):
+                        div *= sizes[a]
+                    assert d % div == 0, (arch, sname, t.shape, spec)
+                    n *= d // div
+                return n
+            def local(_, spec, t):
+                global expect
+                expect += shard_bytes(spec, t)
+            for spec, a in zip(case.in_specs, case.args):
+                shd.map_with_path(local, spec, a)
+            rec = dryrun.trace_case(case, mesh,
+                                    use_hints=dryrun.use_hints_for(case),
+                                    sites=sname == "decode_32k")
+            rec["expect_arg_bytes"] = expect
+            # a rank's bytes of the KV caches split along their slot
+            # axis ([L, B, S, H, D] leaves, S on the model axis), and of
+            # the sliding-window ring caches among them
+            rec["slot_split_cache_bytes"] = rec["ring_split_cache_bytes"] = 0
+            if case.kind != "train":
+                cspec, cache = case.in_specs[1], case.args[1]
+                for name in shd.KV_LEAVES:
+                    if name in cache and len(cspec[name]) > 2 \
+                            and cspec[name][2] == "model":
+                        n = shard_bytes(cspec[name], cache[name])
+                        rec["slot_split_cache_bytes"] += n
+                        if name.endswith("_local"):
+                            rec["ring_split_cache_bytes"] += n
+            out[f"{arch}|{sname}|{mname}"] = rec
 finally:
     dryrun.stop_fake_world()
 print("RESULT " + json.dumps(out))
@@ -104,7 +109,7 @@ def traces():
                OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, "-c", _WORKER,
-         json.dumps({name: mesh + MESH_CASES[name]})],
+         json.dumps({name: mesh + (MESH_CASES[name],)})],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for name, mesh in MESHES.items()]
     out = {}
@@ -142,10 +147,15 @@ def test_trace_case_counts(traces, arch, shape, mesh):
     if shape == "decode_32k" and mesh == "2x4" \
             and rec["slot_split_cache_bytes"]:
         # a cache split along its slot axis is read where it lies: what
-        # is gathered is less than the rank's share of it
+        # is gathered is less than the rank's share of it, and, where
+        # ring caches split so, than the rank's share of the rings alone
         gathered = rec["collective_bytes_by_op"].get(
             "all_gather_into_tensor", 0)
         assert gathered < rec["slot_split_cache_bytes"], rec
+        if rec["ring_split_cache_bytes"]:
+            assert gathered < rec["ring_split_cache_bytes"], rec
+    if arch == "gemma3-1b":
+        assert rec["ring_split_cache_bytes"] > 0
 
 
 @pytest.mark.parametrize("arch", FAMILIES)

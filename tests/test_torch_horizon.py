@@ -28,10 +28,11 @@ from repro_torch.sim.simulator import ServingConfig, build_cluster
 from repro_torch.sim.workload import SHAREGPT
 
 #: the reference's balanced SLO is sized to its TPU cost model (2 ms of
-#: overhead an iteration); the port's H100 figures carry the measured
-#: 50 ms of host enqueue an eager iteration, which alone breaks a 30 ms
-#: TPOT and collapses every horizon to 1.  Its clusters are held to the
-#: SLO chip_smoke.py serves at.
+#: overhead an iteration); the port's H100 figures carry the card's
+#: measured 4 ms of host enqueue a decode-only iteration and model
+#: qwen2.5-3b's at ~11 ms, but its eager mixed iteration at less than
+#: half the 54 ms it takes there.  Its clusters are held to the SLO
+#: chip_smoke.py serves at.
 BAL = SLO(ttft=5.0, tpot=0.2)
 
 

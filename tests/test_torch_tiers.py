@@ -361,36 +361,67 @@ def _requests(side):
     return reqs
 
 
-def _recovery_run(side, crash: bool):
-    """``tests/test_faults_live.py::test_live_warm_recovery_is_token_
-    exact``: with ``crash`` (the port only) the decode instance crashes
-    mid-decode and its victims resume from materialized checkpoint
-    blocks.  The crash time is the port's: its estimator (``core/hw.py``)
-    carries the card's derates, so its virtual timeline is not the
-    reference's, and at t = 0.47 it has decodes in flight there."""
+#: the recovery's checkpoint interval, in generated tokens
+CKPT_TOKENS = 4
+
+
+def _recovery_loop(side, crash_at=None):
+    """``tests/test_faults_live.py``'s warm-recovery stack on ``side``:
+    TaiChi, one P-heavy and one D-heavy instance, eight requests.  On the
+    port, recovery checkpoints every CKPT_TOKENS tokens with materialized
+    KV, and ``crash_at`` (virtual seconds) crashes the decode instance
+    (iid 1) then, recovering it half a second later.  Returns (cluster,
+    requests, loop, injector)."""
     if side.torch_side:
         SC, SL, SLO_, build, Loop = (ServingConfig, Sliders, SLO,
                                      build_cluster, ServingLoop)
         factory = lambda: TorchExecutor(side.cfg, side.params, n_slots=16,
                                         max_seq=512, device="cpu")
+        recovery = RecoveryConfig(enable=True, checkpoint_tokens=CKPT_TOKENS,
+                                  materialize_kv=True)
     else:
-        assert not crash
+        assert crash_at is None
         SC, SL, SLO_, build, Loop = (JaxServingConfig, JaxSliders, JaxSLO,
                                      jax_build_cluster, JaxServingLoop)
         factory = lambda: JaxExecutor(side.cfg, side.params, n_slots=16,
                                       max_seq=512)
+        recovery = None
     slo = SLO_(**LOOSE)
     sc = SC(model="smollm-135m", tp=1, policy="taichi",
             sliders=SL(n_p=1, n_d=1, s_p=64, s_d=32), hbm_blocks=512)
-    recovery = (RecoveryConfig(enable=True, checkpoint_tokens=4,
-                               materialize_kv=True) if crash else None)
     cluster = build(sc, slo, executor_factory=factory, recovery=recovery)
     inj = None
-    if crash:
-        inj = FaultInjector([Fault(0.47, CRASH, 1), Fault(1.0, RECOVER, 1)])
+    if crash_at is not None:
+        inj = FaultInjector([Fault(crash_at, CRASH, 1),
+                             Fault(crash_at + 0.5, RECOVER, 1)])
         cluster.attach_faults(inj)
     reqs = _requests(side)
-    loop = Loop(cluster, slo, arrivals=iter(reqs))
+    return cluster, reqs, Loop(cluster, slo, arrivals=iter(reqs)), inj
+
+
+def _mid_decode_time(side):
+    """A virtual time at which the port's decode instance holds a request
+    past its second checkpoint: the first such commit of an undisturbed
+    run of the same stack, just after it.  The port's virtual timeline
+    follows its estimator, whose derates (``core/hw.py``) are the card's,
+    so no fixed time is mid-decode for every set of them; the crash run
+    replays the same events up to this time."""
+    cluster, _, loop, _ = _recovery_loop(side)
+    dec = next(i for i in cluster.instances if i.iid == 1)
+    while loop.run(max_steps=1):
+        if any(len(r.output_tokens) >= 2 * CKPT_TOKENS
+               for r in dec.decoding.values()):
+            return cluster.now + 1e-6
+    raise AssertionError("no request decoded on the decode instance")
+
+
+def _recovery_run(side, crash: bool):
+    """``tests/test_faults_live.py::test_live_warm_recovery_is_token_
+    exact``: with ``crash`` (the port only) the decode instance crashes
+    mid-decode (:func:`_mid_decode_time`) and its victims resume from
+    materialized checkpoint blocks."""
+    cluster, reqs, loop, inj = _recovery_loop(
+        side, _mid_decode_time(side) if crash else None)
     loop.run()
     assert all(r.state.value == "finished" for r in reqs)
     for inst in cluster.instances:
