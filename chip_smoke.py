@@ -63,7 +63,10 @@ printing one JSON line; any failure raises and the process exits non-zero
                  to the serving form's, lse against the plain version's,
                  two slot halves (kernel 4's second at a negative offset)
                  combined against the whole call and the plain version;
-                 both forms timed
+                 both forms timed, and beside them the plain version's lse
+                 form and the library's one call that returns an output
+                 and its log-sum-exp
+                 (``_scaled_dot_product_efficient_attention``)
   kernels_ssd    the SSD-scan kernel against its plain version: one slot's
                  1024-token prefill at zamba2-7b's and mamba2-1.3b's widths
                  in float32, and zamba2-7b's served prefills in bf16 (887
@@ -1838,12 +1841,43 @@ def _lse_err(a, b):
     return (a - b).abs().max().item()
 
 
+def lse_library_ms(q, k, v, allowed, whole, tol):
+    """The library's time for what an lse form computes: one
+    ``_scaled_dot_product_efficient_attention`` call with
+    ``compute_log_sumexp``, which returns the output and its log-sum-exp,
+    on q [B, Tq, Hq, D], K and V ([B, S, Hkv, D]) expanded to the query
+    heads, and an additive bias that is -inf where ``allowed`` ([B or 1,
+    Tq, S]) is false.  Its output's largest gap to the kernel's ``whole``
+    is reported beside its time and held to ``tol``, so that a time is
+    kept only for the same function.  Where the call rejects the shape,
+    ``library_ms`` is None and ``library_error`` its message."""
+    rep = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kx, vx = (x.transpose(1, 2).repeat_interleave(rep, dim=1) for x in (k, v))
+    bias = torch.zeros(allowed.shape, dtype=q.dtype, device=DEV).masked_fill(
+        ~allowed, float("-inf"))[:, None].expand(
+        q.shape[0], q.shape[2], *allowed.shape[1:])
+    call = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+        qt, kx, vx, bias, True)
+    try:
+        out = call()[0].transpose(1, 2).reshape(whole.shape)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return {"library_ms": None,
+                "library_error": str(e).strip().splitlines()[0][:300]}
+    gap = (out.float() - whole.float()).abs().max().item()
+    assert gap <= tol, f"library call vs kernel: {gap} > {tol}"
+    return {"library_ms": time_ms(call), "library_vs_kernel": gap}
+
+
 def check_dense_decode_lse(shape, lengths, S=DENSE_S):
     """Kernel 3's log-sum-exp form at a serving row: its output bit-equal
     to the serving form's, its lse against the plain version's, and the
     two slot halves' partials (each at its local lengths: what a rank of
     a slot-split cache runs) combined (``combine_stacked``) against the
-    whole kernel call and the plain version; both forms timed."""
+    whole kernel call and the plain version; both forms, the plain
+    version's lse form and the library's (:func:`lse_library_ms`)
+    timed."""
     shape_name, hq, hkv, d, dtype = shape
     B = len(lengths)
     k, v = make_dense_kv(11, B, hkv, d, dtype, S)
@@ -1879,6 +1913,11 @@ def check_dense_decode_lse(shape, lengths, S=DENSE_S):
         <= TOL[dtype], res
     res["ms"] = time_ms(serve)
     res["lse_ms"] = time_ms(lse_form)
+    res["plain_ms"] = time_ms(lambda: dec_ops.decode_attention_ref(
+        q, k, v, ln, return_lse=True))
+    live = torch.arange(S, device=DEV)[None, None, :] < ln.long()[:, None,
+                                                                 None]
+    res.update(lse_library_ms(q[:, None], k, v, live, whole, TOL[dtype]))
     res.update(bound(*dense_decode_work(q, k, lengths, lse=True), dtype))
     return res
 
@@ -1923,6 +1962,12 @@ def check_dense_prefill_lse(shape, B, tq, prefix, S=DENSE_S):
         <= TOL[dtype], res
     res["ms"] = time_ms(serve)
     res["lse_ms"] = time_ms(lse_form)
+    res["plain_ms"] = time_ms(lambda: pf_ops.chunked_prefill_attention_ref(
+        q, k, v, prefix, return_lse=True))
+    kpos = torch.arange(S, device=DEV)[None, :]
+    qpos = prefix + torch.arange(tq, device=DEV)[:, None]
+    res.update(lse_library_ms(q, k, v, (kpos <= qpos)[None], whole,
+                              TOL[dtype]))
     res.update(bound(*dense_prefill_work(q, k, prefix, lse=True), dtype))
     return res
 

@@ -12,6 +12,9 @@ from repro_torch.sim import simulator as sim
 from repro_torch.sim.workload import SHAREGPT
 
 from test_torch_cluster import SAME_HW
+from test_torch_helpers import cap_threads
+
+cap_threads()
 
 CASE = dict(qps_grid=[60, 100], n_requests=60, ratios=[(2, 2)],
             sp_grid=[1024], sd_grid=[128, 256, 1024])

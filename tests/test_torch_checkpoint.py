@@ -27,7 +27,9 @@ from repro_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.training.optimizer import OptState, init_opt_state
 from repro_torch.training.train import synthetic_lm_batches
 
-from test_torch_helpers import numpy_params
+from test_torch_helpers import cap_threads, numpy_params
+
+cap_threads()
 
 ARCH = "smollm-135m"
 DTYPES = ["float32", "bfloat16"]

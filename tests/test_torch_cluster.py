@@ -34,7 +34,10 @@ from repro_torch.engine.engine import TorchExecutor
 from repro_torch.sim import simulator as sim
 from repro_torch.sim.workload import WORKLOADS, LengthDist, WorkloadSpec
 
-from test_torch_helpers import both_params, copying_reference  # noqa: F401
+from test_torch_helpers import (both_params, cap_threads,  # noqa: F401
+                                copying_reference)
+
+cap_threads()
 
 # the reference's host arrays may alias its in-flight inputs on the CPU
 pytestmark = pytest.mark.usefixtures("copying_reference")

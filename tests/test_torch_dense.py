@@ -39,7 +39,10 @@ from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       decode_attention_ref)
 
 from test_torch_engine import Side, _drive
-from test_torch_helpers import both_params, copying_reference  # noqa: F401
+from test_torch_helpers import (both_params, cap_threads,  # noqa: F401
+                                copying_reference)
+
+cap_threads()
 
 # the reference's host arrays may alias its in-flight inputs on the CPU
 pytestmark = pytest.mark.usefixtures("copying_reference")

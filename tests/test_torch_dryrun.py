@@ -13,6 +13,9 @@ import pytest
 import torch
 
 from repro_torch.launch import dryrun
+from test_torch_helpers import cap_threads
+
+cap_threads()
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 FAMILIES = ["qwen2.5-3b", "granite-moe-3b-a800m", "mamba2-1.3b",

@@ -15,7 +15,9 @@ from repro_torch.configs import reduced_config
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
 
-from test_torch_helpers import both_params, scaled_err
+from test_torch_helpers import cap_threads, both_params, scaled_err
+
+cap_threads()
 
 # logits: the tolerance of tests/test_torch_models.py's model tests
 ATOL = 2e-3

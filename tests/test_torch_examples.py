@@ -21,6 +21,9 @@ from repro_torch.examples import (latency_shifting_demo, quickstart,
 from repro_torch.sim import simulator as sim
 
 from test_torch_cluster import SAME_HW
+from test_torch_helpers import cap_threads
+
+cap_threads()
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 

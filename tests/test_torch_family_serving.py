@@ -22,8 +22,11 @@ from repro_torch.launch import serve
 
 from test_torch_cluster import _serve
 from test_torch_engine import Side
-from test_torch_helpers import both_params, copying_reference  # noqa: F401
+from test_torch_helpers import (both_params, cap_threads,  # noqa: F401
+                                copying_reference)
 from test_torch_serving_live import _summary
+
+cap_threads()
 
 # the reference's host arrays may alias its in-flight inputs on the CPU
 pytestmark = pytest.mark.usefixtures("copying_reference")

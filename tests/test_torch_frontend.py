@@ -48,7 +48,10 @@ from repro_torch.launch import serve
 from repro_torch.serving import ServingLoop
 from repro_torch.sim.simulator import ServingConfig, build_cluster
 
-from test_torch_helpers import both_params, copying_reference  # noqa: F401
+from test_torch_helpers import (both_params, cap_threads,  # noqa: F401
+                                copying_reference)
+
+cap_threads()
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SRC = str(ROOT / "src")

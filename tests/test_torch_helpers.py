@@ -1,12 +1,41 @@
 """Helpers shared by the port's parity tests: the same numpy-made
-weights on both sides."""
+weights on both sides, and the cap on each test process's threads."""
+import os
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.models import transformer as jax_tf
 from repro_torch.convert import params_from_jax
+
+# threads a test process's torch may use
+TEST_THREADS = 1
+
+
+def cap_threads(n=TEST_THREADS):
+    """Hold this process's torch to ``n`` intra-op and ``n`` inter-op
+    threads, and the processes it starts to ``n`` OpenMP threads.
+
+    Every other ``tests/test_torch_*.py`` calls it at import, so that a
+    run of any subset of them is capped.  Each of pytest's workers
+    (``-n 6``) imports every test file while it collects, so the first
+    call caps the worker before any test runs, whichever file it then
+    draws, and the reference's tests in that worker run under the same
+    cap.  Left at its default, each worker's torch takes a thread a core,
+    and six workers' threads fighting over eight cores ran the slowest
+    tests 14 to 25 times longer than they take alone.
+    The inter-op pool can be sized only before its first parallel work,
+    and only once; a later call with the same ``n`` leaves it be."""
+    os.environ["OMP_NUM_THREADS"] = str(n)
+    if torch.get_num_threads() != n:
+        torch.set_num_threads(n)
+    if torch.get_num_interop_threads() != n:
+        torch.set_num_interop_threads(n)
 
 
 def numpy_params(cfg_jax, seed=0):
@@ -95,3 +124,30 @@ def test_numpy_params_are_deterministic_and_converted_leaf_for_leaf():
     assert pt["embed"].dtype == torch.float32
     np.testing.assert_array_equal(pt["lm_head"].numpy(),
                                   np.asarray(pj["lm_head"]))
+
+
+_CAP_CHILD = """
+import subprocess, sys, torch
+from test_torch_helpers import cap_threads
+cap_threads(%(n)d)
+cap_threads(%(n)d)                # a second call is a no-op, not an error
+child = subprocess.run(
+    [sys.executable, "-c", "import torch; print(torch.get_num_threads())"],
+    capture_output=True, text=True, check=True).stdout
+print(torch.get_num_threads(), torch.get_num_interop_threads(), int(child))
+"""
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_cap_threads_holds_here_and_in_a_child(n):
+    """In a fresh process, the cap at ``n`` sizes both of torch's pools,
+    holds through a second call, and reaches a torch process that it
+    starts."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "OMP_NUM_THREADS"}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(root, "src"), os.path.join(root, "tests")])
+    out = subprocess.run(
+        [sys.executable, "-c", _CAP_CHILD % dict(n=n)], env=env,
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    assert out.split() == [str(n)] * 3

@@ -26,6 +26,9 @@ from repro_torch.engine.engine import ImmediateStep, SimExecutor
 from repro_torch.engine.request import Request, State
 from repro_torch.sim.simulator import ServingConfig, build_cluster
 from repro_torch.sim.workload import SHAREGPT
+from test_torch_helpers import cap_threads
+
+cap_threads()
 
 #: the reference's balanced SLO is sized to its TPU cost model (2 ms of
 #: overhead an iteration); the port's H100 figures carry the card's

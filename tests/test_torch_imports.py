@@ -9,6 +9,9 @@ import subprocess
 import sys
 
 import pytest
+from test_torch_helpers import cap_threads
+
+cap_threads()
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"

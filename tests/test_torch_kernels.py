@@ -17,6 +17,9 @@ from repro_torch.kernels.chunked_prefill_attention.ops import (
     paged_chunked_prefill_attention, paged_chunked_prefill_attention_ref)
 from repro_torch.kernels.decode_attention.ops import (
     paged_decode_attention, paged_decode_attention_ref)
+from test_torch_helpers import cap_threads
+
+cap_threads()
 
 ATOL = 1e-4
 BS, NBLK, D = 16, 24, 64

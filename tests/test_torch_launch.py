@@ -22,6 +22,9 @@ from repro_torch.distributed.sharding import P
 from repro_torch.launch.specs import (SHAPES, applicable, build_case,
                                       probe_cfg, true_periods)
 from tests.test_sharding import MULTI, SINGLE
+from test_torch_helpers import cap_threads
+
+cap_threads()
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 

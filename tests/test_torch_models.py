@@ -15,7 +15,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import common
 from repro_torch.models import transformer as tf
 
-from test_torch_helpers import both_params
+from test_torch_helpers import cap_threads, both_params
+
+cap_threads()
 
 # elementwise float32 functions: a few ulp between two math libraries
 ELEMENTWISE_ATOL = 2e-6

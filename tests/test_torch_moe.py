@@ -28,8 +28,11 @@ from repro_torch.models import moe
 from repro_torch.models import transformer as tf
 
 from test_torch_engine import Side
-from test_torch_helpers import (both_params, copying_reference,  # noqa: F401
+from test_torch_helpers import (both_params, cap_threads,  # noqa: F401
+                                copying_reference,
                                 scaled_err)
+
+cap_threads()
 
 MOE_ARCHS = ["granite-moe-3b-a800m", "arctic-480b"]
 

@@ -39,6 +39,9 @@ from repro_torch.configs import reduced_config
 from repro_torch.kernels.paged_args import NEG_INF, masked_softmax
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import combine_partials, combine_stacked
+from test_torch_helpers import cap_threads
+
+cap_threads()
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 

@@ -21,6 +21,9 @@ from repro_torch.serving import (ControllerConfig, ServingLoop,
 from repro_torch.sim.simulator import ServingConfig, build_cluster
 from repro_torch.sim.workload import (DECODE_HEAVY, DRIFT, PROMPT_HEAVY,
                                       Phase, PhaseDriftSpec, SHAREGPT)
+from test_torch_helpers import cap_threads
+
+cap_threads()
 
 BAL = SLO(ttft=1.5, tpot=0.030)
 

@@ -12,6 +12,9 @@ from repro_torch.core.instance import D_HEAVY, P_HEAVY
 from repro_torch.core.latency import SLO
 from repro_torch.engine.request import State
 from repro_torch.launch import serve
+from test_torch_helpers import cap_threads
+
+cap_threads()
 
 SLO_LOOSE = SLO(ttft=5.0, tpot=0.5)        # these tests are about tokens
 CPU = ["--engine", "live", "--reduced", "--device", "cpu", "--qps", "4"]

@@ -23,6 +23,9 @@ from repro_torch.configs import get_config
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import transformer as tf
 from tests.test_sharding import MULTI, SINGLE
+from test_torch_helpers import cap_threads
+
+cap_threads()
 
 MESHES = [SINGLE, MULTI]
 MESH_IDS = ["16x16", "2x16x16"]

@@ -27,6 +27,9 @@ from repro_torch.kernels.decode_attention.ops import (
     MAX_SPLIT_PAGES, TARGET_BLOCKS, TILE_KEYS, decode_attention_ref,
     keys_per_split, paged_decode_attention_ref, split_decode_ref)
 from repro_torch.kernels.paged_args import gather_kv
+from test_torch_helpers import cap_threads
+
+cap_threads()
 
 BS, NBLK, D, HQ, HKV = 16, 64, 64, 8, 2
 WIDTH = 12                       # table entries a row: 192 keys

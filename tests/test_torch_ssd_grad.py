@@ -33,6 +33,9 @@ import torch
 
 from repro.models import mamba2 as jax_m2
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from test_torch_helpers import cap_threads
+
+cap_threads()
 
 #: a gradient: max |port - reference| <= GRAD_RTOL max |reference| +
 #: GRAD_ATOL

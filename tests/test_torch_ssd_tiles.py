@@ -33,6 +33,9 @@ from repro.kernels.ssd_scan.ref import ssd_naive_ref
 from repro_torch.kernels.ssd_scan.ops import (P_ROUND, PRODUCTS, TILE,
                                               ssd_scan_ref,
                                               ssd_scan_tiled_ref)
+from test_torch_helpers import cap_threads
+
+cap_threads()
 
 SSD_ATOL = 2e-3
 #: the walk against the plain version, both unrounded float32

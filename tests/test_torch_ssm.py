@@ -38,7 +38,10 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import transformer as tf
 
-from test_torch_helpers import both_params, numpy_params, copying_reference  # noqa: F401
+from test_torch_helpers import (both_params, cap_threads,  # noqa: F401
+                                copying_reference, numpy_params)
+
+cap_threads()
 
 # the reference's host arrays may alias its in-flight inputs on the CPU
 pytestmark = pytest.mark.usefixtures("copying_reference")

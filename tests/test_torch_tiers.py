@@ -39,7 +39,10 @@ from repro_torch.serving.faults import CRASH, RECOVER, Fault, FaultInjector
 from repro_torch.serving.recovery import RecoveryConfig
 from repro_torch.sim.simulator import ServingConfig, build_cluster
 
-from test_torch_helpers import both_params, copying_reference  # noqa: F401
+from test_torch_helpers import (both_params, cap_threads,  # noqa: F401
+                                copying_reference)
+
+cap_threads()
 
 # the reference's host arrays may alias its in-flight inputs on the CPU
 pytestmark = pytest.mark.usefixtures("copying_reference")

@@ -32,6 +32,9 @@ from repro_torch.kernels.chunked_prefill_attention.ops import (
     tiled_prefill_ref)
 from repro_torch.kernels.paged_args import gather_pool
 from repro_torch.models.attention import quantize_int8
+from test_torch_helpers import cap_threads
+
+cap_threads()
 
 BS, NBLK, HKV = 16, 40, 2
 TQ = 37                 # not a multiple of 64, 21 or 8 tokens

@@ -26,7 +26,9 @@ from repro_torch.configs import reduced_config
 from repro_torch.convert import params_from_jax
 from repro_torch.models import transformer as tf
 
-from test_torch_helpers import numpy_params
+from test_torch_helpers import cap_threads, numpy_params
+
+cap_threads()
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 ARCHS = ["qwen2.5-3b", "mamba2-1.3b", "gemma3-1b", "granite-moe-3b-a800m"]

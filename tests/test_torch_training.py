@@ -25,7 +25,9 @@ from repro_torch.models import transformer as tf
 from repro_torch.training.optimizer import tree_leaves
 from repro_torch.training.train import loss_and_grads
 
-from test_torch_helpers import numpy_params
+from test_torch_helpers import cap_threads, numpy_params
+
+cap_threads()
 
 #: a gradient leaf: max |port - reference| <= GRAD_RTOL * max |reference|
 #: + GRAD_ATOL

@@ -20,6 +20,9 @@ from repro_torch.training.train import (make_eval_step, make_train_step,
                                         synthetic_lm_batches)
 
 from test_torch_training import _batch
+from test_torch_helpers import cap_threads
+
+cap_threads()
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,9 @@ from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
 from repro_torch.training.train import synthetic_lm_batches, train_loop
 
 from test_torch_training import _t
+from test_torch_helpers import cap_threads
+
+cap_threads()
 
 
 # ---------------------------------------------------------------------------

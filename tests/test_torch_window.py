@@ -28,9 +28,12 @@ from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
 
 from test_torch_engine import Side
-from test_torch_helpers import (both_params, copying_reference,  # noqa: F401
+from test_torch_helpers import (both_params, cap_threads,  # noqa: F401
+                                copying_reference,
                                 scaled_err)
 from test_torch_moe import _serve_beside_idle_and_prefilling
+
+cap_threads()
 
 ARCH = "gemma3-1b"
 
