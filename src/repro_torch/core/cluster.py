@@ -57,8 +57,8 @@ from repro_torch.core.policies import BasePolicy
 from repro_torch.engine.request import Request, State, TERMINAL_STATES
 from repro_torch.serving import faults as flt
 from repro_torch.serving.recovery import RecoveryConfig, RecoveryManager
-from repro_torch.serving.tracing import (PH_DECODE_WAIT, PH_QUEUE, PH_TRANSFER,
-                                   Tracer)
+from repro_torch.serving.tracing import (HOST_SPANS, PH_DECODE_WAIT, PH_QUEUE,
+                                         PH_TRANSFER, Tracer)
 
 ARRIVAL, ITER, TRANSFER, COMMIT, FAULT = 0, 1, 2, 3, 4
 
@@ -267,6 +267,7 @@ class Cluster:
             except Exception as e:         # executor-step failure
                 self._on_exec_error(inst, now, e)
 
+    @HOST_SPANS.traced("cluster.arrival")
     def _handle_arrival(self, req: Request, now: float):
         if req.rid in self._aborting:      # client hung up before routing
             self._finish_abort(req, now)
@@ -301,6 +302,8 @@ class Cluster:
         if self.on_reject is not None:
             self.on_reject(req, now)
 
+    @HOST_SPANS.traced("cluster.transfer",
+                       lambda self, data, now: (data[1].iid, None))
     def _handle_transfer(self, data, now: float):
         req, dst, state, move_kind, meta = data
         if move_kind == "replicate":
@@ -310,7 +313,8 @@ class Cluster:
             # corrupted replica simply never lands)
             if self._transfer_outcome() == flt.DELIVER \
                     and dst.health == HEALTH_OK:
-                dst.replicate_in(state)
+                with HOST_SPANS.span("sched.transfer"):
+                    dst.replicate_in(state)
                 if self.recovery is not None:
                     # replica-placement registry: a crashed holder's
                     # paths re-replicate immediately instead of waiting
@@ -344,7 +348,8 @@ class Cluster:
             self.transfer_corruptions += 1
             self._retry_transfer(data, now)
             return
-        dst.inject(req, state)
+        with HOST_SPANS.span("sched.transfer"):
+            dst.inject(req, state)
         if self.tracer is not None:
             self.tracer.phase(req.rid, now, PH_DECODE_WAIT,
                               iid=dst.iid, via=move_kind)
@@ -357,6 +362,8 @@ class Cluster:
             self.drain_count += 1
         self._schedule_iter(dst, now)
 
+    @HOST_SPANS.traced("cluster.iter", lambda self, inst, now:
+                       (inst.iid, inst.iterations))
     def _run_iter(self, inst: Instance, now: float):
         if self.async_exec \
                 and getattr(inst.executor, "step_async", None):
@@ -392,6 +399,8 @@ class Cluster:
             return flt.DELIVER
         return self.faults.transfer_outcome()
 
+    @HOST_SPANS.traced("cluster.fault",
+                       lambda self, fault, now: (fault.iid, None))
     def _handle_fault(self, fault: flt.Fault, now: float):
         inst = self._inst_by_id.get(fault.iid)
         if inst is None:
@@ -666,23 +675,24 @@ class Cluster:
             # capture here: both ITER and COMMIT reach this point with
             # the executor pipeline flushed, so exported KV is coherent
             self.recovery.on_commit(self, inst, end)
-        for req in prefill_done:
-            target, needs_transfer = self.policy.on_prefill_done(
-                req, inst, end)
-            if needs_transfer:
-                self._start_transfer(req, inst, target, end, "place")
-            else:
-                target.admit_decode(req)
-                if self.tracer is not None:
-                    self.tracer.phase(req.rid, end, PH_DECODE_WAIT,
-                                      iid=target.iid, via="local")
-                self._schedule_iter(target, end)
-        for (req, src, dst, is_backflow) in (
-                self.policy.select_migrations(end, inst)):
-            self._start_transfer(req, src, dst, end,
-                                 "backflow" if is_backflow
-                                 else "degrade")
-            self._schedule_iter(dst, end)
+        with HOST_SPANS.span("sched.route"):
+            for req in prefill_done:
+                target, needs_transfer = self.policy.on_prefill_done(
+                    req, inst, end)
+                if needs_transfer:
+                    self._start_transfer(req, inst, target, end, "place")
+                else:
+                    target.admit_decode(req)
+                    if self.tracer is not None:
+                        self.tracer.phase(req.rid, end, PH_DECODE_WAIT,
+                                          iid=target.iid, via="local")
+                    self._schedule_iter(target, end)
+            for (req, src, dst, is_backflow) in (
+                    self.policy.select_migrations(end, inst)):
+                self._start_transfer(req, src, dst, end,
+                                     "backflow" if is_backflow
+                                     else "degrade")
+                self._schedule_iter(dst, end)
         if inst.pending_flip is not None:
             self._drain_step(inst, end)
         if reschedule and inst.has_work():
@@ -709,6 +719,8 @@ class Cluster:
         self._iter_scheduled[inst.iid] = True
         self._push(now + dur, COMMIT, inst.iid)
 
+    @HOST_SPANS.traced("cluster.commit", lambda self, inst, now:
+                       (inst.iid, inst.iterations))
     def _commit(self, inst: Instance, now: float):
         res = inst.commit_iteration(defer_emit=True)
         self._iter_scheduled[inst.iid] = False
@@ -722,15 +734,16 @@ class Cluster:
                 self._schedule_iter(inst, now + 0.01)
             else:
                 self._handle(now, ITER, inst.iid)
-        for req, t in res.token_events:
-            inst.token_sink(req, t)
-        if self.recovery is not None:
-            for req in res.finished:
-                self.recovery.drop(req.rid)
-        if self.on_finish is not None:
-            for req in res.finished:
-                self.on_finish(req, req.finish_time
-                               if req.finish_time is not None else now)
+        with HOST_SPANS.span("loop.emit", tokens=len(res.token_events)):
+            for req, t in res.token_events:
+                inst.token_sink(req, t)
+            if self.recovery is not None:
+                for req in res.finished:
+                    self.recovery.drop(req.rid)
+            if self.on_finish is not None:
+                for req in res.finished:
+                    self.on_finish(req, req.finish_time
+                                   if req.finish_time is not None else now)
 
     # ------------------------------------------------------------------
     def set_horizon(self, max_horizon: int):

@@ -17,6 +17,7 @@ from repro_torch.cache.prefix_cache import PrefixCache
 from repro_torch.core.estimator import CostModel
 from repro_torch.engine.kvcache import BlockAllocator
 from repro_torch.engine.request import Request, State
+from repro_torch.serving.tracing import HOST_SPANS
 
 P_HEAVY = "P"
 D_HEAVY = "D"
@@ -562,10 +563,11 @@ class Instance:
         device results (``step_async`` when the executor has one).
         Returns the modeled duration, or None when nothing is
         schedulable; ``commit_iteration`` finishes the iteration."""
-        plan = self.build_plan(now)
-        if plan.empty():
-            return None
-        dur = self.iteration_duration(plan)
+        with HOST_SPANS.span("sched.plan"):
+            plan = self.build_plan(now)
+            if plan.empty():
+                return None
+            dur = self.iteration_duration(plan)
         # the watchdog's step deadline is the COST MODEL's expectation —
         # an injected/real stall extends the actual duration past it
         self.last_progress = now
@@ -605,6 +607,7 @@ class Instance:
             return None
         return pending
 
+    @HOST_SPANS.traced("sched.commit")
     def commit_iteration(self, defer_emit: bool = False) -> CommitResult:
         """Resolve the in-flight step (the one blocking readback) and
         apply request/latency bookkeeping.  With ``defer_emit`` the
@@ -643,7 +646,8 @@ class Instance:
                 tr.phase(req.rid, t0, "prefill", iid=self.iid)
                 tr.event(req.rid, t0, "prefill_chunk", take=take,
                          pos=req.prefill_pos,
-                         cached=req.cached_prefix_len)
+                         cached=req.cached_prefix_len, iid=self.iid,
+                         it=self.iterations)
             req.prefill_pos += take
             req.prefill_instance = (self.iid if req.prefill_instance is None
                                     else req.prefill_instance)
@@ -693,7 +697,8 @@ class Instance:
                 # commit actually produced, and the co-batched prefill
                 # tokens that slowed every step (interference)
                 tr.event(req.rid, last_t[i], "decode_commit", k=K,
-                         tokens=c, interference=plan.prefill_tokens)
+                         tokens=c, interference=plan.prefill_tokens,
+                         iid=self.iid, it=self.iterations)
         for i, req in enumerate(plan.decode_reqs):
             if eos.get(req.rid, False) or req.done():
                 req.state = State.FINISHED
@@ -736,6 +741,7 @@ class Instance:
             self.allocator.free(req.rid)
         self.executor.release(req)
 
+    @HOST_SPANS.traced("migrate.export")
     def eject(self, req: Request):
         """Remove for migration; returns opaque engine state."""
         state = self.executor.extract_state(req)

@@ -95,6 +95,7 @@ from repro_torch.engine.paged import PagedKVCache
 from repro_torch.engine.request import Request
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ATTN, ModelConfig
+from repro_torch.serving.tracing import HOST_SPANS
 
 class MigrationFormatError(ValueError):
     """A migrated engine state's KV format (dense row vs. paged blocks)
@@ -116,7 +117,8 @@ class PendingStep:
 
     ``emitted`` maps rid -> tokens produced this step (populated at
     resolve; consumers fall back to the plan's per-row budgets when a
-    rid is absent)."""
+    rid is absent).  ``iid`` and ``it`` name the instance and iteration
+    of the step's host spans (``exec.fetch``) where they were recorded."""
 
     def __init__(self, executor, arrays, apply_fn, horizon: int = 1,
                  event=None):
@@ -129,6 +131,8 @@ class PendingStep:
         self.eos: Optional[Dict[int, bool]] = None
         self.emitted: Dict[int, int] = {}
         self.resolved = False
+        self.iid: Optional[int] = None
+        self.it: Optional[int] = None
 
     def ready(self) -> bool:
         """True once the device has passed the step's event
@@ -142,6 +146,12 @@ class PendingStep:
         materialization counts as a readback; it additionally counts as
         a blocking sync unless the device was already done."""
         if self._np is None:
+            with HOST_SPANS.span("exec.fetch", self.iid, self.it):
+                self._fetch()
+        return self._np
+
+    def _fetch(self):
+        if self._np is None:
             if self._arrays:
                 self._ex.host_readbacks += 1
                 if not self.ready():
@@ -151,8 +161,8 @@ class PendingStep:
 
     def resolve(self) -> Dict[int, bool]:
         if not self.resolved:
-            arrays = self.prefetch()
-            self.eos = self._apply(arrays, self)
+            with HOST_SPANS.span("exec.fetch", self.iid, self.it):
+                self.eos = self._apply(self._fetch(), self)
             self.resolved = True
             if self._ex is not None and self._ex._pending is self:
                 self._ex._pending = None
@@ -295,12 +305,13 @@ class TorchExecutor:
         self._preadded: set = set()
         self._deferred_states: dict = {}
         self.prefix_adoptions = 0
-        self.prefix_copies = 0
         # async-step pipeline state + observability (test hooks):
         # host_readbacks counts every device->host result
         # materialization; host_syncs counts only the BLOCKING ones
         # (device not yet done when the host asked)
         self._pending: Optional[PendingStep] = None
+        # the last step's ``exec.enqueue.*`` span that holds CUDA events
+        self._timed = None
         self.host_readbacks = 0
         self.host_syncs = 0
         self.horizon_calls = 0
@@ -630,7 +641,6 @@ class TorchExecutor:
         else:
             slot = self._acquire_slot(req.rid)
             migrate.copy_prefix(self.cache, donor, slot, h)
-            self.prefix_copies += 1
         # stale columns >= h are dead: masked by position until prefill/
         # decode overwrites them in order (same argument as zero_row)
         self.positions[slot] = h
@@ -782,20 +792,45 @@ class TorchExecutor:
         may keep scheduling; token-dependent state (output tokens,
         ``last_token``, EOS, donor registration) lands at
         ``resolve()``.  At most one step may be in flight per
-        executor."""
+        executor.
+
+        While host spans record, the dispatch is one
+        ``exec.enqueue.mixed`` span (a plan with prefill rows) or
+        ``exec.enqueue.decode`` (decode only), with CUDA events around
+        its device work on the card; the last step's events, which its
+        resolve has passed, are read then and let go."""
         if self._pending is not None and not self._pending.resolved:
             raise RuntimeError(
                 "step_async: previous step not resolved — the pipeline "
                 "must be flushed (commit the in-flight iteration) first")
-        if self.paged:
-            step = self._step_paged(plan)
-        elif self.batched:
-            step = self._step_batched(plan)
+        if not HOST_SPANS.recording():
+            step = self._step(plan)
         else:
-            step = self._step_reference(plan)
+            kind = "mixed" if plan.prefill_items else "decode"
+            with HOST_SPANS.span("exec.enqueue." + kind) as sp:
+                events = None
+                if sp is not None and self.device.type == "cuda":
+                    if self._timed is not None:
+                        HOST_SPANS.device_ms(self._timed, wait=False)
+                    events = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                    events[0].record()
+                step = self._step(plan)
+                if sp is not None:
+                    if events is not None:
+                        events[1].record()
+                        sp.events, self._timed = events, sp
+                    step.iid, step.it = sp.iid, sp.it
         if isinstance(step, PendingStep):
             self._pending = step
         return step
+
+    def _step(self, plan):
+        if self.paged:
+            return self._step_paged(plan)
+        if self.batched:
+            return self._step_batched(plan)
+        return self._step_reference(plan)
 
     def abort_step(self, pending=None):
         """Fault path: abandon an in-flight dispatched step without
@@ -864,6 +899,13 @@ class TorchExecutor:
             [start for _, _, start, _, _, _ in rows],
             table_rows, self.t_buckets, self.kv.max_blocks,
             self.cache_block_size)
+        sp = HOST_SPANS.top("exec.enqueue.mixed")
+        if sp is not None:
+            n_dec = sum(1 for row in rows if row[5])
+            B, T = packed.tokens.shape
+            sp.note(B=B, T=T, NB=packed.tables.shape[1],
+                    valid=int(packed.valid.sum()),
+                    prefill_rows=len(rows) - n_dec, decode_rows=n_dec)
         toks_dev = self._mixed_fused(
             self._to_dev(packed.tokens), self._to_dev(packed.start),
             self._to_dev(packed.valid), self._to_dev(packed.tables))
@@ -919,6 +961,11 @@ class TorchExecutor:
             [self.kv.tables[s] for _, s, _, _ in rows],
             self.kv.max_blocks, self.cache_block_size)
         B, NB = packed.tables.shape
+        sp = HOST_SPANS.top("exec.enqueue.decode")
+        if sp is not None:
+            sp.note(B=B, K=K, rows=len(rows),
+                    replay=(self.graphs is not None
+                            and ("paged", B, NB, K) in self.graphs.graphs))
         out = self._dispatch(
             ("paged", B, NB, K),
             lambda *a: (self._horizon_paged(*a, K=K),),

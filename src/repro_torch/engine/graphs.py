@@ -57,6 +57,7 @@ from repro_torch.kernels.chunked_prefill_attention.ops import (
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       paged_decode_attention)
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.serving.tracing import HOST_SPANS
 
 #: every kernel wrapper of the port (each keeps its launch count on itself)
 COUNTED = (paged_decode_attention, paged_chunked_prefill_attention,
@@ -115,11 +116,16 @@ class StepGraphs:
     def run(self, key: Hashable, fn: Callable, host_inputs):
         """``fn(*device inputs)`` -> tuple of device tensors, for the
         bucket ``key``: a replay of its graph, or at the key's first use
-        the eager run followed by the capture."""
+        the eager run followed by the capture (a ``graphs.capture`` host
+        span)."""
         step = self.graphs.get(key)
         if step is not None:
             self.replays += 1
             return step.replay(host_inputs)
+        with HOST_SPANS.span("graphs.capture"):
+            return self._first_use(key, fn, host_inputs)
+
+    def _first_use(self, key: Hashable, fn: Callable, host_inputs):
         main = torch.cuda.current_stream(self.device)
         inputs = _host_to_device(host_inputs, self.device)
         # the eager run is the warm-up; its results are this step's

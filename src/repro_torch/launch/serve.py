@@ -123,7 +123,9 @@ def _torch_mode(args, slo: SLO):
 
 
 def _trace_config(args):
-    """--trace (or either output path) turns on lifecycle tracing."""
+    """--trace (or either output path) turns on lifecycle tracing and,
+    with it, the host spans (``--trace-out`` writes them on a track of
+    their own)."""
     if not (args.trace or args.trace_out or args.trace_jsonl):
         return None
     from repro_torch.serving import TraceConfig
@@ -304,8 +306,9 @@ def parse_args(argv=None):
                          "commit executor pipeline")
     # tracing knobs (live mode)
     ap.add_argument("--trace", action="store_true",
-                    help="record per-request lifecycle traces and print "
-                         "an SLO violation attribution report")
+                    help="record per-request lifecycle traces and the "
+                         "host spans, and print an SLO violation "
+                         "attribution report")
     ap.add_argument("--trace-out", metavar="PATH", default=None,
                     help="write a Chrome/Perfetto trace JSON after the "
                          "run (implies --trace)")

@@ -37,6 +37,8 @@ from typing import Iterable, List, Optional, Sequence
 
 import torch
 
+from repro_torch.serving.tracing import HOST_SPANS
+
 CRASH = "crash"
 STALL = "stall"
 EXEC_ERROR = "exec_error"
@@ -173,6 +175,7 @@ class FaultInjector:
 # content-hash verification for migrated KV payloads
 # ---------------------------------------------------------------------------
 
+@HOST_SPANS.traced("migrate.checksum")
 def payload_checksum(state) -> str:
     """Deterministic content hash of a migration payload (nested
     dicts/lists of scalars, numpy arrays, torch tensors, bytes).  Computed at send

@@ -38,8 +38,8 @@ from repro_torch.frontend.admission import AdmissionConfig, AdmissionQueue
 from repro_torch.serving.clock import VirtualClock, WallClock
 from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.metrics import MetricsLog, TelemetryWindow
-from repro_torch.serving.tracing import (PH_ADMISSION, PH_QUEUE, TraceConfig,
-                                   Tracer)
+from repro_torch.serving.tracing import (HOST_SPANS, PH_ADMISSION, PH_QUEUE,
+                                         TraceConfig, Tracer)
 
 _DONE_STATES = (State.FINISHED, State.REJECTED, State.CANCELLED,
                 State.FAILED)
@@ -201,6 +201,8 @@ class ServingLoop:
             cluster.tracer = self.tracer
             for inst in cluster.instances:
                 inst.tracer = self.tracer
+        # the host-span session a traced loop records into (``run``)
+        self._host_session: Optional[int] = None
         for inst in cluster.instances:
             inst.token_sink = self._token_sink
         cluster.on_finish = self._on_finish
@@ -690,39 +692,73 @@ class ServingLoop:
         """Drive events until the system drains (arrivals exhausted and
         all work finished), ``until`` virtual seconds, or ``max_steps``
         events.  Returns the number of events processed; re-entrant —
-        call again to continue."""
+        call again to continue.  Each call is one ``loop.run`` host span,
+        the root of the spans of the events it processes; a loop built
+        with ``tracing`` records them while it runs, each call continuing
+        its session if no other began in between."""
+        traced = self.tracer is not None
+        if traced:
+            prior = HOST_SPANS.forced
+            self._host_session = HOST_SPANS.set_forced(
+                True, self._host_session)
+        try:
+            with HOST_SPANS.root("loop.run"):
+                return self._run(until, max_steps)
+        finally:
+            if traced:
+                HOST_SPANS.set_forced(prior)
+
+    def _run(self, until: Optional[float], max_steps: Optional[int]) -> int:
+        spans = HOST_SPANS
         steps = 0
         if self._arrivals is not None and not self.requests:
-            self._pump_arrival()
+            with spans.span("loop.ingest"):
+                self._pump_arrival()
         while max_steps is None or steps < max_steps:
-            self._drain_ingress()
-            self._watchdog_check(self.cluster.now)
+            if self._ingress is not None:
+                with spans.span("loop.ingest"):
+                    self._drain_ingress()
+            if self.watchdog is not None:
+                with spans.span("loop.watchdog"):
+                    self._watchdog_check(self.cluster.now)
             t = self.cluster.peek_time()
             if t is None:
-                if not self._pump_arrival():
+                with spans.span("loop.ingest"):
+                    pumped = self._pump_arrival()
+                if not pumped:
                     break
                 continue
             if until is not None and t > until:
                 break
-            if self._pace and not self._pace_until(t):
-                continue              # ingress preempted: re-peek
-            if self._stall_check():
-                continue              # quarantined a stalled step: re-peek
+            if self._pace:
+                with spans.span("loop.wait"):
+                    reached = self._pace_until(t)
+                if not reached:
+                    continue          # ingress preempted: re-peek
+            if self.watchdog is not None:
+                with spans.span("loop.watchdog"):
+                    stalled = self._stall_check()
+                if stalled:
+                    continue          # quarantined a stalled step: re-peek
             stepped = self.cluster.step()
             if stepped is None:
                 continue
             steps += 1
             _, kind, _ = stepped
             if kind == ARRIVAL:
-                self._pump_arrival()
+                with spans.span("loop.ingest"):
+                    self._pump_arrival()
             elif self._steal:
-                self._steal_prefill()
+                with spans.span("loop.steal"):
+                    self._steal_prefill()
             now = self.cluster.now
             if self.controller is not None:
-                self.controller.maybe_epoch(now)
+                with spans.span("loop.control"):
+                    self.controller.maybe_epoch(now)
             if self._snapshot_every is not None \
                     and now >= self._next_snapshot:
-                self.log.record(self.snapshot(now))
+                with spans.span("loop.control"):
+                    self.log.record(self.snapshot(now))
                 self._next_snapshot = (
                     now - now % self._snapshot_every + self._snapshot_every)
         return steps

@@ -28,33 +28,44 @@ The tracer is **clock-agnostic**: every hook passes the time it already
 has (virtual event time in sim, wall time under ``WallClock``), so the
 same instrumentation serves both.  It is **observational only** — no
 RNG, no scheduling influence — so a traced run produces bit-identical
-request outcomes to an untraced one, and with ``tracing=None`` every
-call site short-circuits on ``tracer is None`` (zero overhead, asserted
-by ``benchmarks/trace_overhead_bench.py``).
+request outcomes to an untraced one (``tests/test_torch_host_spans.py``
+holds a traced run's greedy tokens equal to an untraced run's), and
+with ``tracing=None`` every call site short-circuits on ``tracer is
+None``.  A ``prefill_chunk`` or ``decode_commit`` event names the
+instance (``iid``) and the iteration (``it``) of its step, the keys of
+that step's host spans.
 
 Attribution:
 
 * ``breakdown(rid)`` -> phase -> seconds, summing exactly to the
   request's end-to-end latency (spans share endpoints);
-* ``ttft_breakdown(rid)`` clips the timeline at the first token — where
-  the TTFT budget went;
 * ``violation_report(slo)`` aggregates the per-phase budget of every
   SLO-violating finished request — "where did violated requests lose
   their budget".
 
+**Host spans** (``HostSpans``, the module's ``HOST_SPANS``) answer where
+the serving path's *host* time goes: one span at every layer boundary of
+the loop, the cluster, the scheduling core, the executor and the graphs,
+stamped on the clock of ``torch.profiler``'s CPU events and mirrored
+into a device trace while a profiler records.
+
 Exporters: Chrome-trace/Perfetto JSON (``to_chrome_trace`` /
-``dump_chrome`` — load in ui.perfetto.dev), JSONL event log
-(``dump_jsonl``), and a Prometheus text renderer over telemetry
-snapshots (``prometheus_text``, content-negotiated on the gateway's
-``/metrics``).
+``dump_chrome`` — load in ui.perfetto.dev; the host spans on a track of
+their own), JSONL event log (``dump_jsonl``), and a Prometheus text
+renderer over telemetry snapshots (``prometheus_text``,
+content-negotiated on the gateway's ``/metrics``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import re
+import time
 from collections import deque
 from typing import Dict, Iterator, List, Optional
+
+import torch
 
 PH_ADMISSION = "admission"
 PH_QUEUE = "queue"
@@ -254,14 +265,6 @@ class Tracer:
                 out[sp.phase] = out.get(sp.phase, 0.0) + (b - a)
         return out
 
-    def ttft_breakdown(self, rid: int) -> Optional[Dict[str, float]]:
-        """Where the TTFT budget went: phase seconds clipped at the
-        first token (None before one exists)."""
-        tr = self.get(rid)
-        if tr is None or tr.first_token_t is None:
-            return None
-        return self._clipped(tr, tr.t_begin, tr.first_token_t)
-
     def violation_report(self, slo) -> dict:
         """Aggregate SLO attribution over retained finished traces:
         for TTFT violators, mean per-phase seconds up to the first
@@ -320,7 +323,9 @@ class Tracer:
     def to_chrome_trace(self) -> dict:
         """Chrome-trace/Perfetto JSON: one row (tid) per request under
         pid 1, cluster-scoped events under pid 2 (one row per
-        instance).  Times in microseconds as the format requires."""
+        instance), and the host spans of the recorder's newest session
+        under pid 3 (``HostSpans.chrome_events``).  Times in
+        microseconds as the format requires."""
         evs: List[dict] = [
             {"ph": "M", "pid": 1, "tid": 0, "name": "process_name",
              "args": {"name": "requests"}},
@@ -352,6 +357,7 @@ class Tracer:
             if attrs:
                 ev["args"] = attrs
             evs.append(ev)
+        evs += HOST_SPANS.chrome_events(pid=3)
         return {"traceEvents": evs, "displayTimeUnit": "ms"}
 
     def dump_chrome(self, path: str):
@@ -390,6 +396,282 @@ class Tracer:
                 if attrs:
                     rec["attrs"] = attrs
                 f.write(json.dumps(rec) + "\n")
+
+
+# ----------------------------------------------------------------------
+# host spans: where the serving path's host time goes
+# ----------------------------------------------------------------------
+_profiler_enabled = torch.autograd._profiler_enabled
+#: the profiler mirror of a span: a ``RecordFunction`` of function scope.
+#: ``torch.profiler.record_function`` opens one of user scope, which the
+#: profiler also draws on the device as a ``gpu_user_annotation`` over
+#: the kernels launched inside it; a trace reader that takes device
+#: events for device work would then count a whole eager step as busy.
+_Mirror = torch._C._profiler._RecordFunctionFast
+#: spans a session keeps; past it ``HostSpans.dropped`` counts the rest
+MAX_SPANS = 1_000_000
+
+
+class HostSpan:
+    """One host span: ``name``; ``t0`` and ``t1``, its start and end in
+    nanoseconds of the Unix epoch (``time.time_ns``, the clock on which
+    ``torch.profiler`` stamps its CPU events; ``t1`` None while open);
+    ``parent``, its parent's ``index`` in the session (-1 for a root); the
+    instance ``iid`` and its iteration number ``it``, where one applies
+    (a span takes its parent's unless its site names them); ``attrs``,
+    the counters its site noted; ``events``, CUDA events recorded around
+    its device work, until ``HostSpans.device_ms`` reads them into
+    ``device`` (ms) and lets them go."""
+    __slots__ = ("name", "t0", "t1", "parent", "index", "iid", "it",
+                 "attrs", "events", "device", "_rec", "_session",
+                 "_mirror")
+
+    def __init__(self, rec: "HostSpans", name: str, parent: int,
+                 iid: Optional[int], it: Optional[int]):
+        self._rec = rec
+        self._session = rec.session
+        self.name = name
+        self.parent = parent
+        self.index = -1
+        self.iid = iid
+        self.it = it
+        self.t0 = 0
+        self.t1: Optional[int] = None
+        self.attrs: dict = {}
+        self.events = None
+        self.device: Optional[float] = None
+        self._mirror = None
+
+    def note(self, **attrs):
+        self.attrs.update(attrs)
+
+    def __enter__(self):
+        rec = self._rec
+        self.index = len(rec.spans)
+        rec.spans.append(self)
+        rec._stack.append(self)
+        if _profiler_enabled():
+            # stamped once the mirror has opened: what the profiler does
+            # before it stamps its own start (a new block of its event
+            # list now and then) falls before both
+            self._mirror = _Mirror(self.name)
+            self._mirror.__enter__()
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, t, v, tb):
+        if self._mirror is not None:
+            self._mirror.__exit__(None, None, None)
+            self._mirror = None
+        self.t1 = time.time_ns()
+        self._rec._stack.pop()
+        return False
+
+
+class _Off:
+    """The context of a span while the recorder is off."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, t, v, tb):
+        return False
+
+
+class _Skip:
+    """The context of a root opened while off, or of a span dropped while
+    recording: while one is open, the spans inside it record nothing
+    either, so that no session holds a span without the root it ran
+    under."""
+    __slots__ = ("_rec",)
+
+    def __init__(self, rec: "HostSpans"):
+        self._rec = rec
+
+    def __enter__(self):
+        self._rec._outer += 1
+        return None
+
+    def __exit__(self, t, v, tb):
+        self._rec._outer -= 1
+        return False
+
+
+_OFF = _Off()
+
+
+class HostSpans:
+    """The port's recorder of host spans, one a process (``HOST_SPANS``).
+
+    It records while a ``torch.profiler`` session is enabled (so every
+    device trace holds the program's spans, each mirrored by a
+    ``RecordFunction`` of its name) or while ``forced`` (the operator's
+    switch: a ``ServingLoop`` built with ``tracing`` holds it on while
+    it runs).  Off, a site costs one check of the two and opens nothing.
+    Turning it on begins a new session: the spans of the last one are
+    dropped, and so is a span whose root opened before the session
+    began.  The spans stay in memory (``spans``, in the order they
+    opened; at most ``MAX_SPANS``) and are read after the run.
+
+    Single-writer, as ``Tracer``: every site runs on the loop's thread.
+
+    Sites (``span``, ``root``): ``loop.run`` (the root, one a call of
+    ``ServingLoop.run``), ``loop.ingest``, ``loop.wait``, ``loop.emit``,
+    ``loop.steal``, ``loop.watchdog``, ``loop.control``;
+    ``cluster.<event kind>``; ``sched.plan``, ``sched.commit``,
+    ``sched.route``, ``sched.transfer``; ``migrate.export``,
+    ``migrate.checksum`` (a transfer's data movement);
+    ``exec.enqueue.mixed``, ``exec.enqueue.decode``, ``exec.fetch``;
+    ``graphs.capture``."""
+
+    def __init__(self):
+        self.forced = False
+        self.session = 0
+        self.spans: List[HostSpan] = []
+        self.dropped = 0            # spans past ``MAX_SPANS``
+        self._live = False          # the current session is recording
+        self._stack: List[HostSpan] = []
+        self._outer = 0             # unrecorded roots (and drops) open
+        self._skip = _Skip(self)
+
+    def recording(self) -> bool:
+        return self.forced or _profiler_enabled()
+
+    def set_forced(self, on: bool, resume: Optional[int] = None) -> int:
+        """The operator's switch.  Turning it on begins a session, unless
+        ``resume`` is the current one (a traced loop that runs again
+        continues its own session where none began in between).
+        Returns the session."""
+        if on and not self.forced:
+            if resume is not None and resume == self.session:
+                self._live = True
+            else:
+                self._begin()
+        self.forced = bool(on)
+        return self.session
+
+    def clear(self):
+        self._begin()
+        self._live = self.recording()
+
+    def _begin(self):
+        self.session += 1
+        self.spans = []
+        self.dropped = 0
+        self._live = True
+
+    def span(self, name: str, iid: Optional[int] = None,
+             it: Optional[int] = None, **attrs):
+        """The context of one span (``with``), noting ``attrs``: the
+        ``HostSpan`` while recording, else None."""
+        if self.forced or _profiler_enabled():
+            return self._open(name, iid, it, attrs)
+        self._live = False
+        return _OFF
+
+    def traced(self, name: str, key=None):
+        """A decorator: each call of the function is one span ``name``;
+        ``key(*args)`` gives its ``(iid, it)``, called only while
+        recording."""
+        def decorate(fn):
+            @functools.wraps(fn)
+            def call(*args, **kw):
+                if not (self.forced or _profiler_enabled()):
+                    self._live = False
+                    return fn(*args, **kw)
+                iid, it = key(*args) if key is not None else (None, None)
+                with self._open(name, iid, it, None):
+                    return fn(*args, **kw)
+            return call
+        return decorate
+
+    def root(self, name: str):
+        """As ``span``, for a root: opened while off, it keeps the spans
+        inside it from recording if the recorder turns on meanwhile."""
+        if self.forced or _profiler_enabled():
+            return self._open(name, None, None, None)
+        self._live = False
+        return self._skip
+
+    def top(self, name: str) -> Optional[HostSpan]:
+        """The innermost open span if it records and is named ``name``
+        (where a site notes its counters), else None."""
+        if self._stack and self._stack[-1].name == name:
+            return self._stack[-1]
+        return None
+
+    def _open(self, name, iid, it, attrs):
+        if not self._live:
+            self._begin()
+        if self._outer:
+            return self._skip
+        stack = self._stack
+        parent = stack[-1] if stack else None
+        if parent is not None and parent._session != self.session:
+            return self._skip       # its root opened in an older session
+        if len(self.spans) >= MAX_SPANS:
+            self.dropped += 1
+            return self._skip
+        if parent is None:
+            sp = HostSpan(self, name, -1, iid, it)
+        else:
+            sp = HostSpan(self, name, parent.index,
+                          parent.iid if iid is None else iid,
+                          parent.it if it is None else it)
+        if attrs:
+            sp.attrs.update(attrs)
+        return sp
+
+    @staticmethod
+    def device_ms(sp: HostSpan, wait: bool = True) -> Optional[float]:
+        """Device milliseconds between the span's two CUDA events, kept
+        in ``sp.device`` once read; the events then go.  With ``wait``
+        False it reads them only if the device has passed the second
+        (None otherwise), so it never blocks."""
+        if sp.events is not None:
+            ev0, ev1 = sp.events
+            if not wait and not ev1.query():
+                return None
+            ev1.synchronize()
+            sp.device = ev0.elapsed_time(ev1)
+            sp.events = None
+        return sp.device
+
+    def chrome_events(self, pid: int = 3) -> List[dict]:
+        """The session's closed spans as Chrome-trace complete events on
+        one row of process ``pid``, in microseconds from the session's
+        first span (the wall clock: the request rows run on the loop's)."""
+        done = [sp for sp in self.spans if sp.t1 is not None]
+        title = "host (wall clock from the first span)"
+        if self.dropped:
+            title += f"; {self.dropped} spans past the cap not kept"
+        evs: List[dict] = [
+            {"ph": "M", "pid": pid, "tid": 0, "name": "process_name",
+             "args": {"name": title}}]
+        if not done:
+            return evs
+        origin = min(sp.t0 for sp in done)
+        for sp in done:
+            args = dict(sp.attrs)
+            if sp.iid is not None:
+                args["iid"] = sp.iid
+            if sp.it is not None:
+                args["it"] = sp.it
+            ms = self.device_ms(sp)
+            if ms is not None:
+                args["device_ms"] = round(ms, 4)
+            ev = {"ph": "X", "pid": pid, "tid": 0, "cat": "host",
+                  "name": sp.name, "ts": round((sp.t0 - origin) / 1e3, 3),
+                  "dur": round((sp.t1 - sp.t0) / 1e3, 3)}
+            if args:
+                ev["args"] = args
+            evs.append(ev)
+        return evs
+
+
+#: the process's recorder (the benchmark's readers find it here)
+HOST_SPANS = HostSpans()
 
 
 # ----------------------------------------------------------------------

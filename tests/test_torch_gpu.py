@@ -1619,3 +1619,42 @@ def test_tp_local_sharded_forward_matches_plain(nccl_mesh, kv_mode):
     assert torch.equal(plain.argmax(-1), sharded.argmax(-1))
     torch.testing.assert_close(sharded, plain, atol=TOL[torch.float32],
                                rtol=0)
+
+
+def test_host_spans_start_at_their_profiler_mirrors(cuda):
+    """A served run on the card under ``torch.profiler``: each of the
+    program's host spans starts within 50 us of the profiler range that
+    mirrors it (one clock), and no span is drawn on the device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.latency import SLO
+    from repro_torch.launch import serve
+    from repro_torch.serving.tracing import HOST_SPANS
+
+    args = serve.parse_args(["--engine", "live", "--reduced", "--arch",
+                             "smollm-135m", "--qps", "4", "--n", "16"])
+    _, loop, _, _ = serve.live_loop(args, SLO(ttft=5.0, tpot=0.5))
+    loop.run(max_steps=24)                  # builds, captures, warms up
+    with profile(activities=[ProfilerActivity.CPU]):
+        loop.run(max_steps=8)               # the profiler's first ranges
+    HOST_SPANS.clear()                      # the next session: the trace's
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loop.run()
+        torch.cuda.synchronize()
+    spans = list(HOST_SPANS.spans)
+    names = {s.name for s in spans}
+    assert {"loop.run", "exec.enqueue.mixed", "exec.fetch"} <= names
+    events = list(prof.profiler.kineto_results.events())
+    mirrors = sorted((e for e in events if e.name() in names
+                      and e.device_type() == DeviceType.CPU),
+                     key=lambda e: e.start_ns())
+    assert [e.name() for e in mirrors] == [s.name for s in spans]
+    gaps = [e.start_ns() - s.t0 for e, s in zip(mirrors, spans)]
+    assert max(abs(g) for g in gaps) <= 50_000, (min(gaps), max(gaps))
+    assert not [e.name() for e in events if e.name() in names
+                and e.device_type() == DeviceType.CUDA]
+    ms = [HOST_SPANS.device_ms(s) for s in spans
+          if s.name.startswith("exec.enqueue.")]
+    assert ms and all(m is not None and m >= 0 for m in ms)
