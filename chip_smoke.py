@@ -721,17 +721,18 @@ class TimedExecutor(TorchExecutor):
     decode steps (the horizon K of a decode-only iteration, else 1),
     whether it replayed a captured graph, how long dispatch and dispatch +
     readback took on the host clock, the device milliseconds between two
-    CUDA events around the dispatch, and the packed (B, T, NB) of a paged
-    mixed or prefill step."""
+    CUDA events around the dispatch, and the packed (B, T, NB, N) of a
+    paged mixed or prefill step: the paged kernel's grid, its table
+    width and the flat token count the other layers ran over."""
 
     def __init__(self, *a, log, **kw):
         super().__init__(*a, **kw)
         self.log = log
         self._packed = None
 
-    def _mixed_fused(self, tokens, start, valid, tables):
-        self._packed = (*tokens.shape, tables.shape[1])
-        return super()._mixed_fused(tokens, start, valid, tables)
+    def _mixed_fused(self, tokens, positions, last, flat, tables):
+        self._packed = (flat.B, flat.T, tables.shape[1], tokens.shape[1])
+        return super()._mixed_fused(tokens, positions, last, flat, tables)
 
     def step_async(self, plan):
         rows = [(take, req.prefill_pos + req.recompute_offset)
@@ -2728,16 +2729,19 @@ def llava_depth(cfg, free_bytes):
 
 def served_paged_rows(log, reqs):
     """rid -> the request's prefill rows as the paged executor packed
-    them: (take, position, B, T, NB, its row), in order (the prefill rows
-    lead a packed step, in the plan's order)."""
+    them: (take, position, B, T, NB, N, its row, its first flat token),
+    in order (the prefill rows lead a packed step, in the plan's order,
+    in the grid and in the flat layout)."""
     out = {r.rid: [] for r in reqs}
     for e in log:
         if not e["prefill"]:
             continue
+        offset = 0
         for row, ((take, pos), rid) in enumerate(zip(e["prefill"],
                                                      e["prefill_rids"])):
             assert pos == sum(t for t, *_ in out[rid]), (rid, pos)
-            out[rid].append((take, pos, *e["packed"], row))
+            out[rid].append((take, pos, *e["packed"], row, offset))
+            offset += take
     for r in reqs:
         assert sum(t for t, *_ in out[r.rid]) == r.prompt_len, r.rid
     return out
@@ -2748,18 +2752,28 @@ def replay_paged(ex, prompt, rows):
     """The first token of ``prompt`` prefilled again on the fresh one-slot
     paged executor ``ex``, in its served chunks and at their packed shapes
     (the same GEMM shapes, so the same kernels and sums): the row at its
-    served index, every other row padding, its table the pool's first
-    blocks."""
-    for take, pos, B, T, NB, row in rows:
-        tokens = np.zeros((B, T), np.int32)
+    served index of the kernel's grid and at its served offset of the
+    flat tokens, every other row and token padding, its table the pool's
+    first blocks."""
+    for take, pos, B, T, NB, N, row, offset in rows:
         start = np.zeros(B, np.int32)
         valid = np.zeros(B, np.int32)
         tables = np.full((B, NB), -1, np.int32)
-        tokens[row, :take] = prompt[pos:pos + take]
         start[row], valid[row] = pos, take
         tables[row] = np.arange(NB, dtype=np.int32)
-        tok = ex._mixed_fused(ex._to_dev(tokens), ex._to_dev(start),
-                              ex._to_dev(valid), ex._to_dev(tables))
+        tokens = np.zeros(N, np.int32)
+        positions = np.zeros(N, np.int32)
+        index = np.full(N, B * T, np.int32)
+        span = slice(offset, offset + take)
+        tokens[span] = prompt[pos:pos + take]
+        positions[span] = np.arange(pos, pos + take)
+        index[span] = row * T + np.arange(take)
+        last = np.full(B, offset + take - 1, np.int32)
+        flat = attn_lib.FlatRows(ex._to_dev(index), ex._to_dev(start),
+                                 ex._to_dev(valid), T)
+        tok = ex._mixed_fused(ex._to_dev(tokens)[None],
+                              ex._to_dev(positions)[None], ex._to_dev(last),
+                              flat, ex._to_dev(tables))
     return int(tok[row])
 
 

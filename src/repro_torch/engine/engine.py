@@ -11,6 +11,8 @@ Three executor paths, as in the reference's ``JaxExecutor``:
   packed as length-1 chunks next to the prefill rows, attention reads KV
   through the block tables with the hand-written paged kernels, sampling
   happens on the device, and only token ids cross the host boundary.
+  A step with prefill rows runs token-major (``repro_torch.engine.flat``):
+  every layer but the kernel's read computes over its valid tokens only.
   Prefix reuse and migration are block-table pointer updates, and
   admission is bounded by blocks actually referenced.
 * **batched dense** (the families that cannot page — recurrent state,
@@ -89,11 +91,13 @@ import torch
 from repro_torch.cache.prefix_cache import PrefixCache
 from repro_torch.cache.prefix_tree import PrefixTree
 from repro_torch.engine import batching, migrate
+from repro_torch.engine.flat import pack_flat
 from repro_torch.engine.graphs import StepGraphs
 from repro_torch.engine.kvcache import BlockAllocator, OutOfBlocks, SlotTable
 from repro_torch.engine.paged import PagedKVCache
 from repro_torch.engine.request import Request
 from repro_torch.models import transformer as tf
+from repro_torch.models.attention import FlatRows
 from repro_torch.models.config import ATTN, ModelConfig
 from repro_torch.serving.tracing import HOST_SPANS
 
@@ -399,21 +403,34 @@ class TorchExecutor:
         return torch.gather(hidden, 1, idx)[:, 0] @ self.params["lm_head"]
 
     @torch.no_grad()
-    def _mixed_fused(self, tokens, start, valid, tables):
+    def _mixed_fused(self, tokens, positions, last, flat: FlatRows, tables):
         """ONE fused mixed prefill+decode step over the block pool (which
-        it updates in place): forward without logits, the last valid
-        hidden state of every row, ``lm_head``, sampling.  Returns the
-        token ids [B] on the device."""
-        T = tokens.shape[1]
-        positions = torch.clamp(
-            start[:, None] + torch.arange(T, dtype=torch.int32,
-                                          device=self.device)[None],
-            max=self.max_seq - 1)          # padding must not leave range
+        it updates in place), token-major: the forward without logits
+        over the step's N tokens [1, N] at ``positions`` [1, N], the
+        paged kernel's read over ``flat``'s grid of the rows' ``tables``,
+        then ``lm_head`` on each row's last token (``last`` [B], its
+        index in the N) and sampling.  Returns the token ids [B] on the
+        device."""
         hidden, _, _ = tf.forward(
             self.params, self.cfg, tokens, positions, self.kv.pool,
-            compute_logits=False, valid_len=valid,
+            compute_logits=False, flat=flat,
             block_tables=(tables, self.cache_block_size))
-        return self._sample_on_device(self._last_logits(hidden, valid))
+        return self._sample_on_device(
+            hidden[0].index_select(0, last.long()) @ self.params["lm_head"])
+
+    def _mixed_step(self, packed, flat):
+        """:meth:`_mixed_fused` on a step's grid ``packed`` (a
+        ``batching.PackedMixed``) and its token-major layout ``flat``
+        (``flat.pack_flat``'s), their arrays brought to the device in one
+        copy.  Returns the token ids [B] on the device."""
+        B, T = packed.tokens.shape
+        parts = (flat.tokens, flat.positions, flat.index, flat.last,
+                 packed.start, packed.valid, packed.tables.reshape(-1))
+        tokens, positions, index, last, start, valid, tables = torch.split(
+            self._to_dev(np.concatenate(parts)), [len(a) for a in parts])
+        return self._mixed_fused(tokens[None], positions[None], last,
+                                 FlatRows(index, start, valid, T),
+                                 tables.view(B, -1))
 
     @torch.no_grad()
     def _decode_fused(self, tokens, pos, active):
@@ -869,8 +886,10 @@ class TorchExecutor:
         Decode rows ride along as length-1 chunks (token = last sampled
         token, start = row position); per-row valid lengths and block
         tables make the geometry uniform and run the paged chunked-prefill
-        kernel.  A decode-only iteration takes the K-step horizon (K = 1
-        included) and runs the paged decode kernel."""
+        kernel; every other layer runs over the valid tokens alone, laid
+        out token-major (``engine.flat``).  A decode-only iteration takes
+        the K-step horizon (K = 1 included) and runs the paged decode
+        kernel."""
         if not plan.prefill_items and plan.decode_reqs:
             return self._step_horizon_paged(plan,
                                             getattr(plan, "horizon", 1))
@@ -899,16 +918,18 @@ class TorchExecutor:
             [start for _, _, start, _, _, _ in rows],
             table_rows, self.t_buckets, self.kv.max_blocks,
             self.cache_block_size)
+        flat = pack_flat(packed, self.max_seq)
         sp = HOST_SPANS.top("exec.enqueue.mixed")
         if sp is not None:
             n_dec = sum(1 for row in rows if row[5])
             B, T = packed.tokens.shape
-            sp.note(B=B, T=T, NB=packed.tables.shape[1],
+            # B x T: the positions the per-token layers compute over;
+            # attn_B x attn_T: the paged kernel's grid
+            sp.note(B=1, T=len(flat.tokens), attn_B=B, attn_T=T,
+                    NB=packed.tables.shape[1],
                     valid=int(packed.valid.sum()),
                     prefill_rows=len(rows) - n_dec, decode_rows=n_dec)
-        toks_dev = self._mixed_fused(
-            self._to_dev(packed.tokens), self._to_dev(packed.start),
-            self._to_dev(packed.valid), self._to_dev(packed.tables))
+        toks_dev = self._mixed_step(packed, flat)
         event = self._event()
         # position advances are token-independent: land them at dispatch
         # so the next plan (and the decode rows' next dispatch) sees the

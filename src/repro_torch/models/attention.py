@@ -162,6 +162,47 @@ def paged_destinations(positions, tables, block_size: int, P: int,
     return dest.reshape(-1).long()
 
 
+class FlatRows:
+    """A paged step laid out token-major (the mixed step): its N tokens
+    run every per-token layer as one row [1, N], and only the paged
+    chunked-prefill kernel reads them in its per-row grid [B, T], row b
+    starting at ``start[b]`` with ``valid[b]`` tokens.  ``index`` [N] is
+    each token's cell ``b * T + t`` of the grid, or ``B * T`` for a
+    padding token: a cell past the grid, which the kernel never reads.
+    The grid of queries is allocated and zeroed at the first layer and
+    refilled by every later one."""
+
+    def __init__(self, index, start, valid, T: int):
+        self.index = index.long()
+        self.start, self.valid, self.T = start, valid, T
+        self.B = start.shape[0]
+        # the cell a token's output is read from: a padding token reads
+        # the grid's last cell, and its output is dropped
+        self.read = self.index.clamp(max=self.B * T - 1)
+        self._q = None
+
+    def destinations(self, positions, tables, block_size: int, P: int):
+        """Pool slot [N] of every token: :func:`paged_destinations` over
+        the grid, taken at ``index`` (``P`` for a padding token)."""
+        grid = positions.new_zeros(self.B * self.T + 1)
+        grid.index_copy_(0, self.index, positions.reshape(-1))
+        dest = paged_destinations(grid[:-1].view(self.B, self.T), tables,
+                                  block_size, P, self.valid)
+        return torch.cat([dest, dest.new_full((1,), P)])[self.index]
+
+    def to_grid(self, q):
+        """q [1, N, H, D] -> the kernel's [B, T, H, D]."""
+        if self._q is None:
+            self._q = q.new_zeros((self.B * self.T + 1,) + q.shape[2:])
+        self._q.index_copy_(0, self.index, q[0])
+        return self._q[:-1].view((self.B, self.T) + q.shape[2:])
+
+    def from_grid(self, o):
+        """The kernel's o [B, T, H, D] -> [1, N, H, D]."""
+        return o.reshape((self.B * self.T,) + o.shape[2:]) \
+            .index_select(0, self.read)[None]
+
+
 def paged_write(cache_k, cache_v, k_new, v_new, positions, tables,
                 block_size: int, valid_len=None, dest=None):
     """Scatter [B,T] new KV into a physical block pool, IN PLACE.
@@ -472,7 +513,7 @@ def _read_ring_shards(q, k, v, ck, cv, positions, window: int):
 
 def self_attention(p, cfg, x, positions, cache=None, *, window: int = 0,
                    rope: bool = True, valid_len=None, block_tables=None,
-                   rope_cs=None, write_dest=None):
+                   rope_cs=None, write_dest=None, flat=None):
     """positions: [B,T] absolute positions of x's tokens.
 
     cache=None  -> pure in-chunk causal attention.
@@ -491,6 +532,9 @@ def self_attention(p, cfg, x, positions, cache=None, *, window: int = 0,
     rope_cs / write_dest -> optional per-forward precomputations
                    (``common.rope_tables``, ``paged_destinations``) shared
                    by all layers.
+    flat         -> optional :class:`FlatRows` with ``block_tables``: x is
+                   [1, N, d], the step's tokens laid out token-major, and
+                   only the kernel's read takes its per-row grid.
     Returns (out [B,T,d], cache); the cache is updated in place.
     """
     B, T, _ = x.shape
@@ -505,7 +549,7 @@ def self_attention(p, cfg, x, positions, cache=None, *, window: int = 0,
         k = apply_rope(k, positions, cfg.rope_theta, rope_cs)
     if block_tables is not None:
         return _paged_attention(p, cfg, x, q, k, v, positions, cache,
-                                block_tables, valid_len, write_dest)
+                                block_tables, valid_len, write_dest, flat)
     if cache is None:
         mask = causal_mask(positions, positions, window)
         probs = _masked_softmax(_gqa_scores(q, k), mask)
@@ -604,18 +648,19 @@ def _ring_attention(p, x, q, k, v, positions, cache, window: int,
 
 
 def _paged_attention(p, cfg, x, q, k, v, positions, cache, block_tables,
-                     valid_len, write_dest=None):
+                     valid_len, write_dest=None, flat=None):
     """Write the chunk into the block pool, attend over the row's
     table-resident KV.  T == 1 goes to the paged decode kernel, T > 1
     (chunked prefill, and the decode rows with ``valid == 1`` of a mixed
-    batch) to the paged chunked-prefill kernel."""
+    batch) and a token-major step (``flat``) to the paged chunked-prefill
+    kernel."""
     B, T, _ = x.shape
     names = sorted(cache)
     bs = block_tables[1]
 
     def core(q, k, v, positions, tables, valid_len, write_dest, *leaves):
         return _paged_core(q, k, v, positions, dict(zip(names, leaves)),
-                           (tables, bs), valid_len, write_dest)
+                           (tables, bs), valid_len, write_dest, flat)
 
     # on DTensor pools [P + 1, Hkv, D], on local shards: a pool has no row
     # axis, so every rank takes every row (q, the new KV, the tables
@@ -631,8 +676,10 @@ def _paged_attention(p, cfg, x, q, k, v, positions, cache, block_tables,
 
 
 def _paged_core(q, k, v, positions, cache, block_tables, valid_len,
-                write_dest):
-    """The pool write and the paged kernel's read -> o [B, T, Hq, D]."""
+                write_dest, flat=None):
+    """The pool write and the paged kernel's read -> o [B, T, Hq, D]
+    (with ``flat``, q, k, v and o are [1, N, H, D] and only the read
+    takes the kernel's grid)."""
     B, T = q.shape[:2]
     tables, bs = block_tables
     quant = "k_scale" in cache
@@ -650,6 +697,10 @@ def _paged_core(q, k, v, positions, cache, block_tables, valid_len,
         scales = dict(k_scale=cache["k_scale"], v_scale=cache["v_scale"])
     ck, cv = paged_write(cache["k"], cache["v"], k, v, positions, tables,
                          bs, valid_len, write_dest)
+    if flat is not None:
+        return flat.from_grid(paged_chunked_prefill_attention(
+            flat.to_grid(q), ck, cv, tables, flat.start, flat.valid,
+            block_size=bs, **scales))
     if T == 1:
         o = paged_decode_attention(
             q[:, 0], ck, cv, tables, (positions[:, -1] + 1).to(torch.int32),

@@ -267,7 +267,7 @@ _branch = hints.constrain_tokens
 
 def _apply_block(btype, bp, cfg, x, positions, cache, shared_attn,
                  enc_out=None, valid_len=None, block_tables=None,
-                 rope_cs=None, write_dest=None):
+                 rope_cs=None, write_dest=None, flat=None):
     """Returns (x, aux loss or None); ``cache`` (this layer's views) is
     updated in place."""
     x = hints.constrain_tokens(x)
@@ -284,7 +284,7 @@ def _apply_block(btype, bp, cfg, x, positions, cache, shared_attn,
             bp["attn"], cfg, h, positions, cache,
             window=cfg.sliding_window if btype == ATTN_LOCAL else 0,
             valid_len=valid_len, block_tables=block_tables, rope_cs=rope_cs,
-            write_dest=write_dest)
+            write_dest=write_dest, flat=flat)
         x = x + _branch(a)
         h = rms_norm(x, bp["ln2"], cfg.norm_eps)
         return x + _branch(mlp(bp["mlp"], h)), None
@@ -354,7 +354,7 @@ def _apply_block(btype, bp, cfg, x, positions, cache, shared_attn,
 
 def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
             image_embeds=None, audio_embeds=None, compute_logits=True,
-            valid_len=None, block_tables=None):
+            valid_len=None, block_tables=None, flat=None):
     """tokens: [B, T] integer.  positions: [B, T'] absolute positions
     (defaults to arange).  cache: from ``init_cache`` /
     ``init_paged_cache``, or None for full-context (training).
@@ -373,6 +373,10 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
     block_tables: optional ``(tables [B, NB] int32, block_size)`` — the
     cache is a paged block pool and every row addresses its KV through
     its block table.
+    flat: optional ``attention.FlatRows`` with ``block_tables``: tokens
+    and positions are [1, N], a mixed step laid out token-major; every
+    layer runs over its N tokens, the paged kernel's read over the grid
+    of ``tables``' rows that ``flat`` maps them into.
 
     Returns (logits [B, T', V] or hidden, cache, aux_loss); the cache is
     updated in place and returned as the same object; aux_loss is the sum
@@ -401,8 +405,11 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
     write_dest = None
     if block_tables is not None:
         tables, bs = block_tables
-        write_dest = attn_lib.paged_destinations(
-            positions, tables, bs, cache["k"].shape[1] - 1, valid_len)
+        P = cache["k"].shape[1] - 1
+        write_dest = (attn_lib.paged_destinations(positions, tables, bs, P,
+                                                  valid_len)
+                      if flat is None else
+                      flat.destinations(positions, tables, bs, P))
     shared_attn = params.get("shared_attn")
     paged = block_tables is not None
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
@@ -434,7 +441,7 @@ def forward(params, cfg: ModelConfig, tokens, positions=None, cache=None, *,
                 n_cross += 1
         run = lambda h, btype=btype, bp=bp, lc=lc: _apply_block(
             btype, bp, cfg, h, positions, lc, shared_attn, enc, valid_len,
-            block_tables, rope_cs, write_dest)
+            block_tables, rope_cs, write_dest, flat)
         x, block_aux = (checkpoint(run, x, use_reentrant=False) if remat
                         else run(x))
         if block_aux is not None:

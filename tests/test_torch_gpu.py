@@ -1009,6 +1009,87 @@ def test_executor_on_the_card_matches_itself_on_the_cpu(cuda, kv_quant):
     assert on_card == gen(torch.device("cpu"))
 
 
+def test_flat_mixed_step_on_the_card_matches_the_grid_step(cuda):
+    """qwen2.5-3b's widths in bf16, two layers: a mixed step of a chunk
+    after a claimed prefix, a fresh chunk, 40 decode rows (one at the
+    ``max_seq - 1`` clamp) and 22 pad rows, token-major (the executor's
+    step) against the same step over the grid [B, T] through the same
+    kernel 2 calls.  Hidden states and the KV written within bf16
+    rounding of the grid step's (the GEMMs take other shapes), each
+    row's token within that rounding of the grid step's best logit, and
+    no slot but the dump slot written beyond the valid tokens'."""
+    from repro_torch.engine import batching
+    from repro_torch.engine.flat import pack_flat
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=2)
+    max_seq, bs, blocks = 1024, BS, 2048
+    ex = TorchExecutor(cfg, tf.init_params(7, cfg, cuda), n_slots=64,
+                       max_seq=max_seq, cache_block_size=bs,
+                       hbm_blocks=blocks, device=cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    for leaf in ex.kv.pool.values():
+        leaf.copy_(torch.randn(leaf.shape, device=cuda, generator=g))
+    rng = np.random.default_rng(4)
+    rows = [(256, 128), (100, 0)] + [
+        (1, int(p)) for p in rng.integers(1, max_seq - 1, 39)] + [
+        (1, max_seq - 1)]
+    chunks = [list(map(int, rng.integers(1, cfg.vocab_size, n)))
+              for n, _ in rows]
+    free = list(rng.permutation(blocks))
+    tables = []
+    for n, start in rows:
+        t = np.full(ex.kv.max_blocks, -1, np.int32)
+        nb = -(-min(start + n, max_seq) // bs)
+        t[:nb] = [free.pop() for _ in range(nb)]
+        tables.append(t)
+    packed = batching.pack_mixed(chunks, [s for _, s in rows], tables,
+                                 ex.t_buckets, ex.kv.max_blocks, bs)
+    B, T = packed.tokens.shape
+    assert (B, T) == (64, 256)
+    pool0 = {k: v.clone() for k, v in ex.kv.pool.items()}
+    grid_pool = {k: v.clone() for k, v in pool0.items()}
+    tok, start, valid, tab = (torch.from_numpy(a).to(cuda) for a in (
+        packed.tokens, packed.start, packed.valid, packed.tables))
+    pos = torch.clamp(start[:, None] + torch.arange(
+        T, dtype=torch.int32, device=cuda)[None], max=max_seq - 1)
+    p0 = paged_chunked_prefill_attention.launches
+    with torch.no_grad():
+        hidden, _, _ = tf.forward(ex.params, cfg, tok, pos, grid_pool,
+                                  compute_logits=False, valid_len=valid,
+                                  block_tables=(tab, bs))
+        logits = ex._last_logits(hidden, valid).float()
+        flat = pack_flat(packed, max_seq)
+        got = ex._mixed_step(packed, flat)
+        fh, _, _ = tf.forward(
+            ex.params, cfg, torch.from_numpy(flat.tokens).to(cuda)[None],
+            torch.from_numpy(flat.positions).to(cuda)[None],
+            {k: v.clone() for k, v in pool0.items()}, compute_logits=False,
+            flat=attn.FlatRows(torch.from_numpy(flat.index).to(cuda), start,
+                               valid, T), block_tables=(tab, bs))
+    torch.cuda.synchronize()
+    assert paged_chunked_prefill_attention.launches - p0 == 3 * 2
+    n = len(rows)
+    idx = torch.from_numpy(flat.index[:int(valid.sum())]).to(cuda).long()
+    want = hidden.reshape(B * T, -1)[idx].float()
+    assert (fh[0, :len(idx)].float() - want).abs().max() <= \
+        TOL[torch.bfloat16] * want.abs().max()
+    best = logits[:n].max(dim=-1).values
+    chosen = logits[:n].gather(1, got[:n].long()[:, None])[:, 0]
+    assert ((best - chosen) <= TOL[torch.bfloat16] * best.abs()).all()
+    P = pool0["k"].shape[1] - 1
+    wrote = torch.zeros(P, dtype=torch.bool, device=cuda)
+    for b in range(n):
+        for t in range(int(packed.valid[b])):
+            p = min(int(packed.start[b]) + t, max_seq - 1)
+            wrote[int(packed.tables[b, p // bs]) * bs + p % bs] = True
+    for name, leaf in ex.kv.pool.items():
+        a, ref = leaf[:, :P].float(), grid_pool[name][:, :P].float()
+        assert torch.equal(leaf[:, :P][:, ~wrote],
+                           pool0[name][:, :P][:, ~wrote]), name
+        assert (a - ref).abs().max() <= TOL[torch.bfloat16] * \
+            ref.abs().max(), name
+
+
 # ---------------------------------------------------------------------------
 # decode-only steps replayed as CUDA graphs
 # ---------------------------------------------------------------------------

@@ -2,9 +2,10 @@
 the CPU: off, a served run records nothing and opens no profiler range;
 on (``--trace``), the spans of the same run nest and close, its tokens are
 bit-equal to the run with everything off, and the mixed steps' counters
-are the shapes ``pack_mixed`` returned; under ``torch.profiler`` every
-span has its mirror in the trace; and the benchmark's span arithmetic
-(``servebench/harness/program_spans.py``) on a hand-built session."""
+are the shapes of the flat packing and of ``pack_mixed``'s grid; under
+``torch.profiler`` every span has its mirror in the trace; and the
+benchmark's span arithmetic (``servebench/harness/program_spans.py``) on a
+hand-built session."""
 import importlib.util
 import os
 from types import SimpleNamespace
@@ -15,6 +16,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core.latency import SLO
 from repro_torch.engine import batching
+from repro_torch.engine.flat import FLAT_ALIGN
 from repro_torch.launch import serve
 from repro_torch.serving import tracing
 from repro_torch.serving.tracing import HOST_SPANS, HostSpans
@@ -146,7 +148,11 @@ def test_mixed_counters_are_the_packed_shapes(runs):
     assert len(mixed) == len(runs.packed) > 0
     for s, (p, n_rows) in zip(mixed, runs.packed):
         a = s.attrs
-        assert (a["B"], a["T"]) == p.tokens.shape
+        # the per-token layers run over the flat packing [1, N]: the
+        # valid tokens rounded up to FLAT_ALIGN; the kernel over the grid
+        n = -(-int(p.valid.sum()) // FLAT_ALIGN) * FLAT_ALIGN
+        assert (a["B"], a["T"]) == (1, n)
+        assert (a["attn_B"], a["attn_T"]) == p.tokens.shape
         assert a["NB"] == p.tables.shape[1]
         assert a["valid"] == int(p.valid.sum())
         assert a["prefill_rows"] >= 1
