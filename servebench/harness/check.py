@@ -7,10 +7,11 @@ between the instances, one prefilled on each instance role (chunks of
 both sizes), then others at random until the sample holds the mix's
 ``check.served_tokens`` served tokens (never more than
 ``check.max_tokens`` tokens of sequence in all).  The plain float32
-reference (``reference/model.py``) runs once over each prompt with its
-served tokens, and the number compared is the widest gap by which a
-served token's logit lies below the reference's best logit at its
-position.  Greedy decoding serves the argmax of the program's own
+reference of the configuration's family (``families/<family>.py``'s
+``logits``, in ``reference/``) runs once over each prompt with its
+served tokens and its inputs, and the number compared is the widest gap
+by which a served token's logit lies below the reference's best logit
+at its position.  Greedy decoding serves the argmax of the program's own
 logits, so a sound program's gaps are its rounding; a wrong token, a
 dropped KV write or a lost migration shows as a gap of the logits' own
 scale.
@@ -25,8 +26,9 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+import families
 from harness.traffic import rng_for
-from reference import model as ref
+from reference.precision import fp8_mm
 
 
 def choose(finished: Sequence, seed: int, roles: Dict[int, str],
@@ -62,15 +64,16 @@ def choose(finished: Sequence, seed: int, roles: Dict[int, str],
     return picked
 
 
-def sequences(reqs, device) -> List[Tuple[torch.Tensor, int]]:
+def sequences(reqs, device, inputs: Dict[int, dict]
+              ) -> List[Tuple[torch.Tensor, int, dict]]:
     """(prompt + served tokens but the last, index of the last prompt
-    token) of each request: the positions whose logits chose the served
-    tokens."""
+    token, the request's inputs beyond its prompt ids) of each request:
+    the positions whose logits chose the served tokens."""
     out = []
     for r in reqs:
         toks = list(r.prompt_tokens) + list(r.output_tokens[:-1])
         out.append((torch.tensor(toks, dtype=torch.int32, device=device),
-                    r.prompt_len - 1))
+                    r.prompt_len - 1, inputs[r.rid]))
     return out
 
 
@@ -79,12 +82,14 @@ def served(reqs, device) -> List[torch.Tensor]:
             for r in reqs]
 
 
-def widest_gap(params, config, reqs, device) -> Tuple[float, int]:
+def widest_gap(params, config, reqs, device, inputs: Dict[int, dict]
+               ) -> Tuple[float, int]:
     """(widest gap of a served token below the reference's best logit,
-    tokens compared)."""
+    tokens compared); ``inputs``: each request's, by rid."""
     if not reqs:
         return float("nan"), 0
-    lg = ref.logits(params, config, sequences(reqs, device))
+    lg = families.load(config).logits(params, config,
+                                      sequences(reqs, device, inputs))
     worst, n = 0.0, 0
     for lo, tok in zip(lg, served(reqs, device)):
         gap = lo.max(-1).values - lo.gather(-1, tok[:, None])[:, 0]
@@ -93,13 +98,15 @@ def widest_gap(params, config, reqs, device) -> Tuple[float, int]:
     return worst, n
 
 
-def control_gap(params, config, reqs, device) -> Tuple[float, int]:
+def control_gap(params, config, reqs, device, inputs: Dict[int, dict]
+                ) -> Tuple[float, int]:
     """The control: the widest gap, in the float32 reference's logits, of
     the token the float8 reference puts first at each position of the
-    same prompts and tokens."""
-    seqs = sequences(reqs, device)
-    lg = ref.logits(params, config, seqs)
-    low = ref.logits(params, config, seqs, mm=ref.fp8_mm)
+    same prompts, tokens and inputs."""
+    seqs = sequences(reqs, device, inputs)
+    family = families.load(config)
+    lg = family.logits(params, config, seqs)
+    low = family.logits(params, config, seqs, mm=fp8_mm)
     worst, n = 0.0, 0
     for lo, lw in zip(lg, low):
         pick = lw.argmax(-1)

@@ -19,11 +19,8 @@ in a horizon) count nothing.  So a share of the roofline computed from
 these counts is a lower bound of what the kernel achieves on the work
 the request needed.
 
-The model step: a token at position ``p`` costs 2 x (the layer matrices'
-parameters) + 4 Hq D (p + 1) in each layer, and a produced token also
-costs its ``lm_head`` row (2 d V).  These are the model's FLOPs, not the
-program's: padding rows and the logits of unfinished prefill rows are
-not counted.
+A model's FLOPs are its family's (``servebench/families/``): the shape
+below is what the kernels count, and a family returns it.
 """
 from __future__ import annotations
 
@@ -47,7 +44,9 @@ def peaks(device_name: str) -> dict:
 
 @dataclasses.dataclass(frozen=True)
 class Shape:
-    """The sizes the counts need (from the configuration file)."""
+    """The sizes the counts need (a family's ``shape`` of the configuration
+    file): ``layers`` is the number of layers that call kernels 1 and 2
+    once a step."""
     layers: int
     d_model: int
     heads: int
@@ -58,12 +57,6 @@ class Shape:
     block_size: int = 16
     kv_bytes: int = 2          # bytes of one cached element (bf16)
     act_bytes: int = 2         # bytes of a query / output element
-
-    @property
-    def layer_matrix_params(self) -> int:
-        d, dh = self.d_model, self.head_dim
-        return (d * dh * (self.heads + 2 * self.kv_heads)
-                + self.heads * dh * d + 3 * d * self.d_ff)
 
 
 def decode_call(shape: Shape, keys: Iterable[int]) -> Tuple[float, float]:
@@ -94,22 +87,6 @@ def prefill_call(shape: Shape, rows: Iterable[Tuple[int, int]]
                    + 2.0 * v * hq * dh * shape.act_bytes
                    + 4.0 * -(-n // shape.block_size))
     return flops, nbytes
-
-
-def model_tokens(shape: Shape, rows: Iterable[Tuple[int, int, bool]]
-                 ) -> float:
-    """Model FLOPs of rows of ``(start, valid, produces a token)``."""
-    per_token = 2.0 * shape.layer_matrix_params * shape.layers
-    attn = 4.0 * shape.heads * shape.head_dim * shape.layers
-    head = 2.0 * shape.d_model * shape.vocab
-    flops = 0.0
-    for s, v, emits in rows:
-        if v <= 0:
-            continue
-        flops += v * per_token + attn * (v * s + v * (v + 1) / 2.0)
-        if emits:
-            flops += head
-    return flops
 
 
 def least_seconds(flops: float, nbytes: float, device_name: str

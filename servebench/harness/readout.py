@@ -5,7 +5,7 @@ or of a peak is never written as 0 for want of data."""
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -15,7 +15,9 @@ from harness.measure import percentile
 
 @dataclasses.dataclass
 class RunView:
-    shape: count.Shape
+    shape: count.Shape               # the family's shape of the config
+    family: object                   # the config's family module
+    inputs: Dict[int, dict]          # each window request's, by rid
     device: str
     power_limit_w: Optional[float]
     profile: Optional[dict]          # trace.read() of the traced slice
@@ -37,7 +39,9 @@ def model_flops(run: RunView, dispatches) -> float:
         else:
             rows += [(s, v, c) for s, v, c in d.prefill]
             rows += [(p, 1, True) for p, _ in d.decode]
-    return count.model_tokens(run.shape, rows)
+    extras = [run.inputs[rid] for d in dispatches for rid in d.started
+              if rid in run.inputs]
+    return run.family.model_flops(run.shape, rows, extras)
 
 
 def least_kernel_seconds(run: RunView, kernel: str) -> float:

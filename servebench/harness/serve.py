@@ -40,6 +40,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+import families
 from harness.measure import Timed
 from harness.traffic import Arrival, Traffic
 
@@ -86,6 +87,8 @@ class Dispatch:
     used_blocks: int          # blocks in use in this instance's pool
     ev0: object = None
     ev1: object = None
+    # rids of the requests whose prefill starts in this dispatch
+    started: list = dataclasses.field(default_factory=list)
 
     def device_ms(self) -> float:
         return self.ev0.elapsed_time(self.ev1)
@@ -107,12 +110,14 @@ def traced_classes(P):
             self.index = index
 
         def step_async(self, plan):
-            prefill = []
+            prefill, started = [], []
             for req, start, take, completes in (plan.prefill_rows()
                                                 if plan.prefill_items
                                                 else ()):
                 prefill.append((start + req.recompute_offset, take,
                                 bool(completes)))
+                if start + req.recompute_offset == 0:
+                    started.append(req.rid)
             pos = [int(self.positions[self.slots.slot(r.rid)])
                    for r in plan.decode_reqs]
             if prefill:
@@ -136,7 +141,7 @@ def traced_classes(P):
             self.log.append(Dispatch(
                 self.index, kind, t0, steps, decode, prefill,
                 self.graphs.replays > rep, self.kv.allocator.used_blocks,
-                ev0, ev1))
+                ev0, ev1, started))
             inner = step.resolve
 
             def resolve():
@@ -243,10 +248,10 @@ class Bench:
 
     def __init__(self, cell, seed: int, seconds: float, trace: bool,
                  device="cuda"):
-        from harness.weights import port_config
         self.P = program()
         self.cell = cell
         self.config = cell.config
+        self.family = families.load(self.config)
         self.seed = seed
         self.seconds = float(seconds)
         self.trace = trace
@@ -254,20 +259,27 @@ class Bench:
         self.cuda = self.device.type == "cuda"
         if trace and not self.cuda:
             raise ValueError("a traced run reads the card's trace")
-        self.cfg = port_config(self.config)
+        self.cfg = self.family.port_config(self.config)
         self.ex = self.config["executor"]
-        self.traffic = Traffic(cell.traffic, self.cfg.vocab_size,
-                               self.seconds)
+        self.set_traffic()
         self.limits = cell.traffic["limits"]
         self.log: List[Dispatch] = []
         self.notes: dict = {}
+        # each window request's inputs beyond its prompt ids, by rid
+        self.inputs: Dict[int, dict] = {}
+
+    def set_traffic(self):
+        """The generator of the cell's mix (after a change to the mix)."""
+        self.traffic = Traffic(self.cell.traffic, self.cfg.vocab_size,
+                               self.seconds, self.family.inputs)
 
     # ---- set-up ----------------------------------------------------------
     def _request(self, a: Arrival):
         return self.P["Request"](prompt_len=len(a.prompt),
                                  max_new_tokens=a.output_len, arrival=a.due,
                                  hidden_output_len=a.output_len,
-                                 prompt_tokens=a.prompt.tolist())
+                                 prompt_tokens=a.prompt.tolist(),
+                                 **self.family.request_kwargs(a))
 
     def _serving_config(self):
         P, ex = self.P, self.ex
@@ -386,6 +398,7 @@ class Bench:
                 t.rid = r.rid
                 timed[r.rid] = t
                 self.requests[r.rid] = r
+                self.inputs[r.rid] = a.inputs
                 yield r
 
         self.captures_before = [e.graphs.captures for e in self.executors] \

@@ -30,6 +30,10 @@ the requests due in the window are waited for until each has finished
 or can no longer meet both limits; ``stop``: the run ends when the
 window closes), ``warmup`` {``requests``, ``max_output``} and ``check``
 {``served_tokens``, ``max_tokens``} (the sample the reference compares).
+
+A request's inputs beyond its prompt ids (an image, say) are its
+configuration's family's (``servebench/families/``), drawn from the
+``inputs`` stream of its seed and its index.
 """
 from __future__ import annotations
 
@@ -46,7 +50,7 @@ BLOCK = 8
 
 #: independent random streams of one seed
 STREAMS = {"window": 0, "warmup": 1, "sample": 2, "weights": 3,
-           "prefix": 4, "schedule": 5}
+           "prefix": 4, "schedule": 5, "inputs": 6}
 
 
 def rng_for(seed: int, stream: str, *more: int) -> np.random.Generator:
@@ -100,11 +104,17 @@ class Arrival:
     due: float            # seconds after the window opens
     prompt: np.ndarray    # int32 token ids
     output_len: int
+    # what it carries beyond its prompt ids (its family's ``inputs``)
+    inputs: dict = dataclasses.field(default_factory=dict)
 
 
 class Traffic:
-    def __init__(self, mix: dict, vocab_size: int, period_s: float):
+    def __init__(self, mix: dict, vocab_size: int, period_s: float,
+                 inputs=None):
+        """``inputs``: the cell's family's ``inputs`` (None: a request
+        carries its prompt ids alone)."""
         self.mix = mix
+        self.inputs = inputs
         self.vocab_size = int(vocab_size)
         self.period_s = float(period_s)
         arr = mix["arrivals"]
@@ -167,7 +177,7 @@ class Traffic:
                 prompt[:m] = pre[:m]
             out.append(Arrival(k * n + i, float(due[i]), prompt,
                                int(olens[i])))
-        return out
+        return self._with_inputs(seed, stream, out)
 
     def arrivals(self, seed: int) -> Iterator[Arrival]:
         """Period after period, without end: the window's, then the
@@ -188,7 +198,18 @@ class Traffic:
         plens[-1] = self.prompt.hi
         olens = np.minimum(rng.permutation(self.output.quantiles(n)),
                            int(w["max_output"]))
-        return [Arrival(i, 0.0, rng.integers(1, self.vocab_size,
-                                             size=int(p), dtype=np.int32),
-                        int(o))
-                for i, (p, o) in enumerate(zip(plens, olens))]
+        return self._with_inputs(seed, "warmup", [
+            Arrival(i, 0.0, rng.integers(1, self.vocab_size, size=int(p),
+                                         dtype=np.int32), int(o))
+            for i, (p, o) in enumerate(zip(plens, olens))])
+
+    def _with_inputs(self, seed: int, stream: str, arrivals: List[Arrival]
+                     ) -> List[Arrival]:
+        """Each arrival's inputs, drawn from a stream of its own (the
+        stream of its arrivals and its index), so the other streams draw
+        what they draw without inputs."""
+        if self.inputs is not None:
+            for a in arrivals:
+                a.inputs = self.inputs(a, rng_for(seed, "inputs",
+                                                  STREAMS[stream], a.index))
+        return arrivals

@@ -1,4 +1,5 @@
-"""Plain float32 forward of the benchmark's decoder-only models, as their
+"""The ``decoder`` family's reference (``families/decoder.py``): the plain
+float32 forward of the benchmark's decoder-only models, as their
 configuration files state them:
 
 * Qwen2 (``Qwen/Qwen2.5-3B``): RMSNorm, rotary positions (half-split,
@@ -8,19 +9,20 @@ configuration files state them:
   block without the q/k/v bias, untied output embeddings.
 
 The tensors are the benchmark's (``harness/weights.py``), in the served
-layout: ``embed`` [V, d], ``lm_head`` [d, V], ``final_norm`` [d],
-``layers[i]`` with ``ln1``, ``ln2`` [d], ``attn`` {``wq`` [d, Hq Dh],
-``wk``, ``wv`` [d, Hkv Dh], ``wo`` [Hq Dh, d], ``bq``/``bk``/``bv``} and
-``mlp`` {``w_gate``, ``w_up`` [d, F], ``w_down`` [F, d]}.  Norm gains are
-stored as offsets from 1 (the gain is ``1 + w``).
+layout (``families/decoder.py``): ``embed`` [V, d], ``lm_head`` [d, V],
+``final_norm`` [d], ``layers[i]`` with ``ln1``, ``ln2`` [d], ``attn``
+{``wq`` [d, Hq Dh], ``wk``, ``wv`` [d, Hkv Dh], ``wo`` [Hq Dh, d],
+``bq``/``bk``/``bv``} and ``mlp`` {``w_gate``, ``w_up`` [d, F],
+``w_down`` [F, d]}.  Norm gains are stored as offsets from 1 (the gain
+is ``1 + w``).
 
 The forward runs layer by layer over every sequence it is given, each
 layer's weights cast to float32 only while that layer runs, so it fits
 beside weights that fill most of the card.  Matrix products go through
-``mm``: exact float32 (TF32 off) by default; ``fp8_mm`` rounds both
-operands to float8 e4m3 (per-row and per-column scales) first, the
-precision a faster program might be tempted to serve in, and is the
-comparison's control.
+``mm`` (``precision.py``): exact float32 (TF32 off) by default; ``fp8_mm``
+rounds both operands to float8 e4m3 (per-row and per-column scales)
+first, the precision a faster program might be tempted to serve in, and
+is the comparison's control.
 """
 from __future__ import annotations
 
@@ -28,29 +30,10 @@ from typing import Callable, List, Sequence, Tuple
 
 import torch
 
+from reference.precision import exact, exact_mm
+
 #: queries a block of the attention products takes at once
 Q_BLOCK = 1024
-
-
-def exact():
-    """Float32 products stay float32 on the card."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
-def exact_mm(a, b):
-    return a @ b
-
-
-def _fp8(x, dim):
-    s = x.abs().amax(dim=dim, keepdim=True).clamp_min(1e-30) / 448.0
-    return (x / s).to(torch.float8_e4m3fn).to(torch.float32) * s
-
-
-def fp8_mm(a, b):
-    """``a @ b`` with ``a``'s rows and ``b``'s columns rounded to float8
-    e4m3, each scaled to its largest magnitude; accumulated in float32."""
-    return _fp8(a, -1) @ _fp8(b, -2)
 
 
 def rms_norm(x, w, eps):

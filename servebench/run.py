@@ -5,14 +5,15 @@
         --trace <0|1>
 
 The cell (an entry of ``workloads`` in ``BENCHMARK.json``) names a model
-configuration (``servebench/configs/``) and a traffic mix
-(``servebench/traffic/``).  The run makes the weights and the requests
-from ``--seed``, sets the program up and warms it, serves the mix for
-``--seconds`` on the program's main path (``harness/serve.py``), and then
-compares a sample of what it served with the plain reference
-(``harness/check.py``).  The last line of standard output is one JSON
-object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
-end-to-end metrics, or with ``--trace 1`` its per-layer metrics, read by
+configuration (``servebench/configs/``), laid out by its family
+(``servebench/families/``), and a traffic mix (``servebench/traffic/``).
+The run makes the weights and the requests from ``--seed``, sets the
+program up and warms it, serves the mix for ``--seconds`` on the
+program's main path (``harness/serve.py``), and then compares a sample
+of what it served with the plain reference (``harness/check.py``).  The
+last line of standard output is one JSON object: ``correct``,
+``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics,
+or with ``--trace 1`` its per-layer metrics, read by
 ``servebench/metrics/<name>.py``), ``device``, with ``--trace 1`` a
 ``breakdown``, and last ``compared``: each number the comparison held
 beside its limit.  The same numbers end standard error.
@@ -82,7 +83,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda"):
     """One run of ``cell``: returns (result, compared)."""
     import torch
 
-    from harness import check, count, readout, trace as tracing
+    from harness import check, readout, trace as tracing
     from harness.measure import candidates, end_to_end
     from harness.serve import Bench
     from harness.spec import read_metrics
@@ -116,16 +117,14 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda"):
     failed = sum(r.failed for r in window)
     view = None
     if trace:
-        cfg = bench.cfg
-        shape = count.Shape(cfg.num_layers, cfg.d_model, cfg.num_heads,
-                            cfg.num_kv_heads, cfg.head_dim, cfg.d_ff,
-                            cfg.vocab_size, bench.ex["block_size"])
+        shape = bench.family.shape(cell.config, bench.ex["block_size"])
         prof = bench.profile
         t0 = prof.t0 if prof is not None and prof.t0 else float("inf")
         t1 = prof.t1 if prof is not None and prof.t1 else float("inf")
         close = bench.setup_end + bench.seconds
         view = readout.RunView(
-            shape=shape, device=torch.cuda.get_device_name(0),
+            shape=shape, family=bench.family, inputs=bench.inputs,
+            device=torch.cuda.get_device_name(0),
             power_limit_w=power_limit_w(),
             profile=(tracing.read(prof.prof) if prof is not None
                      and prof.done else None),
@@ -142,7 +141,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda"):
     sample = check.choose(finished, seed, roles, mix_check["served_tokens"],
                           mix_check["max_tokens"])
     t_check = time.perf_counter()
-    gap, n_cmp = check.widest_gap(params, cell.config, sample, device)
+    gap, n_cmp = check.widest_gap(params, cell.config, sample, device,
+                                  bench.inputs)
     bench.notes["check_s"] = time.perf_counter() - t_check
     limit = float(cell.config["check"]["gap_limit"])
     compared = {

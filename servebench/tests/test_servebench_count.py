@@ -8,6 +8,7 @@ import os
 import pytest
 
 from conftest import BENCH
+from families import decoder
 from harness import count
 
 LLAVA = count.Shape(layers=60, d_model=7168, heads=56, kv_heads=8,
@@ -45,20 +46,20 @@ def test_model_flops_by_hand():
     # qwen2.5-3b: 36 layers of 2048 x 128 x (16 + 4) + 2048 x 2048 + 3 x
     # 2048 x 11008 parameters in matrices
     per_layer = 2048 * 128 * 20 + 2048 * 2048 + 3 * 2048 * 11008
-    assert QWEN.layer_matrix_params == per_layer
+    assert decoder.layer_matrix_params(QWEN) == per_layer
     # one decode token at position 99 that is produced
     want = (2 * per_layer * 36 + 4 * 16 * 128 * 100 * 36
             + 2 * 2048 * 151936)
-    assert count.model_tokens(QWEN, [(99, 1, True)]) == want
+    assert decoder.model_flops(QWEN, [(99, 1, True)], []) == want
     # a prefill chunk that completes nothing has no lm_head row
-    chunk = count.model_tokens(QWEN, [(0, 4, False)])
+    chunk = decoder.model_flops(QWEN, [(0, 4, False)], [])
     assert chunk == 4 * 2 * per_layer * 36 + 4 * 16 * 128 * 36 * 10
 
 
 def test_llava_decode_step_is_bound_by_its_weights():
     # a 16-row llava decode step at 1000 keys: weights 2 x 34.4 G
     # parameters dominate, ~20.5 ms at 3.35 TB/s
-    params = (LLAVA.layer_matrix_params * LLAVA.layers
+    params = (decoder.layer_matrix_params(LLAVA) * LLAVA.layers
               + 2 * LLAVA.d_model * LLAVA.vocab)
     assert abs(2 * params / 3.35e12 - 0.0205) < 0.0005
 

@@ -6,6 +6,7 @@ import ast
 import glob
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -23,12 +24,13 @@ import run
 from harness import check, readout, trace
 from harness.serve import program, traced_classes
 from harness.spec import load_benchmark, load_reader
-from harness.weights import port_config
+import families
 P = program()
 traced_classes(P)
 bench = load_benchmark()
 for c in bench["configs"]:
-    port_config(json.load(open(os.path.join({root!r}, c["file"]))))
+    config = json.load(open(os.path.join({root!r}, c["file"])))
+    families.load(config).port_config(config)
 for m in bench["per_layer"]:
     load_reader(m["name"])
 print(json.dumps({{name: getattr(mod, "__file__", None)
@@ -78,8 +80,8 @@ def test_the_reference_imports_nothing_of_the_program():
                      [node.module or ""] if isinstance(node, ast.ImportFrom)
                      else [])
             for n in names:
-                assert top(n) in {"torch", "__future__", "typing", "math"}, \
-                    (path, n)
+                assert top(n) in {"torch", "__future__", "typing", "math",
+                                  "reference"}, (path, n)
 
 
 def test_no_file_of_the_benchmark_reads_the_old_benchmarks():
@@ -96,3 +98,31 @@ def test_no_file_of_the_benchmark_reads_the_old_benchmarks():
                 assert top(node.module) != "benchmarks", path
             if isinstance(node, ast.Import):
                 assert all(top(a.name) != "benchmarks" for a in node.names)
+
+
+#: the harness files that know no model's layout (the families do)
+LAYOUT_FREE = ["run.py", "harness/serve.py", "harness/check.py",
+               "harness/weights.py", "harness/traffic.py",
+               "harness/readout.py", "tools/common.py", "tools/readings.py",
+               "tools/sweep.py"]
+
+#: a leaf, a layer, a size of the decoder's configuration files or its
+#: FLOP formula
+LAYOUT_NAMES = re.compile(
+    r"\b(wq|wk|wv|wo|bq|bk|bv|w_gate|w_up|w_down|ln1|ln2|lm_head|"
+    r"final_norm|layer_matrix_params|model_tokens|hidden_size|"
+    r"intermediate_size|num_hidden_layers|num_attention_heads|"
+    r"num_key_value_heads|tie_word_embeddings|attention_bias)\b"
+    r"|[\"'](layers|embed|attn|mlp)[\"']")
+
+
+def test_only_the_families_know_a_models_layout():
+    for rel in LAYOUT_FREE:
+        text = open(os.path.join(BENCH, rel)).read()
+        found = [(n + 1, m.group(0))
+                 for n, line in enumerate(text.splitlines())
+                 for m in LAYOUT_NAMES.finditer(line)]
+        assert not found, (rel, found)
+    # the pattern finds what it looks for
+    assert LAYOUT_NAMES.search('params["layers"][0]["attn"]["wq"]')
+    assert LAYOUT_NAMES.search("shape.layer_matrix_params")

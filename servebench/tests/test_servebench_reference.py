@@ -9,8 +9,9 @@ import pytest
 import torch
 
 from conftest import TINY_CONFIG
-from harness.weights import make_params, port_config
-from reference import model as ref
+import families
+from harness.weights import make_params
+from reference import model as ref, precision
 
 FAMILIES = {
     # Qwen2: q/k/v bias, tied embeddings
@@ -36,7 +37,8 @@ def test_reference_matches_the_programs_plain_forward(family):
     params, _ = make_params(c, 3, "cpu")
     tokens = torch.randint(1, c["vocab_size"], (37,),
                            generator=torch.Generator().manual_seed(0))
-    want, _, _ = tf.forward(params, port_config(c), tokens[None].long())
+    want, _, _ = tf.forward(params, families.load(c).port_config(c),
+                             tokens[None].long())
     got = ref.logits(params, c, [(tokens.int(), 0)])[0]
     assert got.shape == want[0].shape
     scale = want.abs().max()
@@ -65,7 +67,7 @@ def test_fp8_products_are_coarser_than_float32():
     g = torch.Generator().manual_seed(0)
     a = torch.randn(64, 256, generator=g)
     b = torch.randn(256, 32, generator=g)
-    exact = ref.exact_mm(a, b)
-    low = ref.fp8_mm(a, b)
+    exact = precision.exact_mm(a, b)
+    low = precision.fp8_mm(a, b)
     rel = ((low - exact).norm() / exact.norm()).item()
     assert 1e-3 < rel < 0.1

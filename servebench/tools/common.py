@@ -45,12 +45,10 @@ def window(bench, seed: int, rate=None):
     """Serves one window (and drain) of ``seed`` at ``rate`` on the
     bench's executors; returns its end-to-end numbers."""
     from harness.measure import end_to_end
-    from harness.traffic import Traffic
     if rate is not None:
         bench.cell.traffic["arrivals"]["rate_per_s"] = rate
     bench.seed = seed
-    bench.traffic = Traffic(bench.cell.traffic, bench.cfg.vocab_size,
-                            bench.seconds)
+    bench.set_traffic()
     t0 = time.perf_counter()
     bench.capture_window_buckets()
     bench.run_window()

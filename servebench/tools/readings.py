@@ -32,7 +32,8 @@ def readings(workload, seconds, seeds, control_seeds, device="cuda",
                               cell.traffic["check"]["served_tokens"],
                               cell.traffic["check"]["max_tokens"])
         t0 = time.perf_counter()
-        gap, n = check.widest_gap(params, cell.config, sample, device)
+        gap, n = check.widest_gap(params, cell.config, sample, device,
+                                  bench.inputs)
         row = dict(seed=seed, program_gap=gap, tokens=n,
                    requests=len(sample),
                    migrated=sum(r.n_migrations > 0 for r in sample),
@@ -42,8 +43,8 @@ def readings(workload, seconds, seeds, control_seeds, device="cuda",
                    exec_errors=e2e["exec_errors"],
                    captures_in_window=e2e["captures_in_window"])
         if seed in control_seeds:
-            row["control_gap"], _ = check.control_gap(params, cell.config,
-                                                      sample, device)
+            row["control_gap"], _ = check.control_gap(
+                params, cell.config, sample, device, bench.inputs)
         bench.finish()
         emit(**row)
         out.append(row)
